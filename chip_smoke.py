@@ -5,17 +5,29 @@
 
 Phases, each of which raises on failure (exit code 1, no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA and nvcc;
-  2. build of the CUDA kernels from ribbit_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version on the card, bit-equal,
-     on one full 8 Mi-bp segment plus halo of a simulated chromosome and
-     on edge lengths, at two motif configurations; times of both at the
-     segment shape (CUDA events, after a warm-up);
-  4. the main path end to end through the port's CLI (--backend gpu) on a
-     ~47 Mb five-contig genome made with ribbit_tpu.sim: launch counts,
-     event streams against the C generation (capture_runs_host), BED
-     against ribbit_tpu's host path byte for byte, and wall times.
+  2. build of the CUDA kernels from ribbit_tpu_torch/csrc (one nvcc per
+     source, all at once) and of the C core from csrc/;
+  3. the event kernels against their plain PyTorch versions on the card,
+     bit-equal, on one full 8 Mi-bp segment plus halo of a simulated
+     chromosome and on edge lengths, at two motif configurations; times of
+     both at the segment shape (CUDA events, after a warm-up);
+  4. the event-extraction path end to end through the port's CLI
+     (--backend gpu) on a ~47 Mb five-contig genome made with the port's
+     sim: launch counts, event streams against the C generation
+     (capture_runs_host), BED against the port's host route byte for byte,
+     and wall times;
+  5. the SSW kernels against their plain version on the card, bit-equal on
+     all four outputs in forward and terminate mode: every round-1 pair of
+     refine_batched on a 1,031,571 bp contig and its reverse pair, and edge
+     pairs (length 1, both sides of fits(), all N, the largest pair, a
+     17,000 bp perfect match whose score clamps at 32767, a read past the
+     large kernel's shared memory); times at the round-1 batch;
+  6. device-batched refinement end to end: RIBBIT_BATCHED_REFINE=1 through
+     the port's CLI on that contig, launch counts, BED against the port's
+     host route and default gpu route, and the wall time split into
+     forward kernels, host traceback and the rest.
 The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of jax.
+{"ok": true, "device": {...}}.  Imports nothing of jax or ribbit_tpu.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,6 +48,18 @@ BP_PER_LOCUS = 2660            # bench.py's chromosome recipe
 EDGE_LENGTHS = (1, 7, 8, 101, 102, 103, 4097)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+SSW_REPS = 5
+# the batched route's contig: 1,031,571 bp, about one yeast chromosome
+# (the Python traceback, ~5 ms a pair, rules out chr21 here)
+ROUTE_LOCI, ROUTE_SEED = 400, 38
+CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
+INT32_LANES_PER_SM = 64        # Hopper: int32 results per SM per clock
+# int32 operations per (position, shift row) that the event passes need at
+# least: the byte compare (anchor_planes); the compare, the overlay OR and
+# one operation for each of the two 8-windows (event_words)
+SCAN_OPS = {"anchor_planes": 1, "event_words": 4}
+SOURCES = ("scan_events", "ssw_forward")
 
 
 def log(*a):
@@ -46,6 +71,25 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """The card's int32 rate: SMs x 64 lanes x the maximum SM clock."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"    int32 rate: {sms} SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} "
+        f"MHz = {sms * INT32_LANES_PER_SM * mhz * 1e6 / 1e12:.2f} Tops/s")
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float, rate: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    int32 operations over the int32 rate."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -79,10 +123,31 @@ def write_fasta(path: str, contigs) -> int:
     return total
 
 
-def phase_kernels(se, genome_seq: str, cfgs, dev):
-    """Kernel vs plain version, bit-equal; times at the segment shape."""
-    from ribbit_tpu.encode import encode
-    from ribbit_tpu.eventstitch import HALO
+def phase_build():
+    """Every kernel source and the C core, built at once; loads them."""
+    from ribbit_tpu_torch import cuda_build
+    from ribbit_tpu_torch.core import get_core_lib
+
+    def timed(fn, *a):
+        t = time.perf_counter()
+        fn(*a)
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(SOURCES) + 1) as ex:
+        futs = {f"ribbit_tpu_torch/csrc/{stem}.cu": ex.submit(
+            timed, cuda_build.build, stem) for stem in SOURCES}
+        futs["the C core (csrc/*.c)"] = ex.submit(timed, get_core_lib)
+        for name, f in futs.items():
+            log(f"    built {name} in {f.result():.1f} s")
+    for stem in SOURCES:
+        cuda_build.load(stem)
+
+
+def phase_kernels(se, genome_seq: str, cfgs, dev, rate):
+    """Kernel vs plain version, bit-equal; times and bounds at the segment
+    shape."""
+    from ribbit_tpu_torch.encode import encode
+    from ribbit_tpu_torch.eventstitch import HALO
 
     seg_len = (8 << 20) + 2 * HALO
     rng = np.random.default_rng(0)
@@ -117,6 +182,12 @@ def phase_kernels(se, genome_seq: str, cfgs, dev):
                 raise AssertionError(f"kernel != plain version ({tag} "
                                      f"{name}: {e_a}, {e_w})")
             if name == "segment" and cfg is cfgs[0]:
+                L = len(seq)
+                nbytes = {"anchor_planes": L + a_k.numel() * 4,
+                          "event_words": 2 * L + a_k.numel() * 4
+                          + w_k.numel() * 4}
+                rows = {"anchor_planes": cfg.nshifts,
+                        "event_words": se.nsp_of(cfg)}
                 times["anchor_planes"] = (
                     cuda_ms(lambda: se.anchor_planes(c, cfg), KERNEL_REPS),
                     cuda_ms(lambda: se.anchor_planes_ref(c, cfg),
@@ -126,6 +197,9 @@ def phase_kernels(se, genome_seq: str, cfgs, dev):
                             KERNEL_REPS),
                     cuda_ms(lambda: se.flagwords_ref(c, n, a_k, cfg),
                             PLAIN_REPS))
+                for k in times:
+                    times[k] += bound(nbytes[k], rows[k] * L * SCAN_OPS[k],
+                                      rate)
                 # the rest of one segment's extraction, on the host clock
                 # (second of two runs: the first pays page faults)
                 for _ in range(2):
@@ -141,21 +215,22 @@ def phase_kernels(se, genome_seq: str, cfgs, dev):
                     f"({w_host.nbytes / d2h / 1e9:.2f} GB/s), C decode "
                     f"{dec * 1e3:.1f} ms")
             del a_k, a_p, w_k, w_p
-    for k, (ms, pms) in times.items():
+    for k, (ms, pms, bms, by) in times.items():
         log(f"  {k} at the segment shape: kernel {ms:.3f} ms, plain "
-            f"{pms:.3f} ms ({pms / ms:.1f}x)")
+            f"{pms:.3f} ms ({pms / ms:.1f}x), bound {bms:.4f} ms by {by}")
     return err, times
 
 
 def phase_e2e(se, genome, cfg, dev):
     """The port's CLI with --backend gpu against the C generation and the
-    host path."""
-    from ribbit_tpu.core import CoreSession
-    from ribbit_tpu.encode import encode
-    from ribbit_tpu.eventstitch import (capture_runs_host,
-                                        scan_events_segmented, segment_bounds)
-    from ribbit_tpu.pipeline import process_fasta as host_process_fasta
+    port's host route."""
     from ribbit_tpu_torch.cli import main as cli_main
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.encode import encode
+    from ribbit_tpu_torch.eventstitch import (capture_runs_host,
+                                              scan_events_segmented,
+                                              segment_bounds)
+    from ribbit_tpu_torch.host import process_fasta as host_process_fasta
     from ribbit_tpu_torch.pipeline import SEG_SIZE
 
     with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
@@ -192,17 +267,9 @@ def phase_e2e(se, genome, cfg, dev):
             port_lines = fh.read().splitlines()
 
         t = time.perf_counter()
-        host_lines = host_process_fasta(fa, cfg, scan_backend="host")
+        host_lines = host_process_fasta(fa, cfg)
         host_s = time.perf_counter() - t
-        if port_lines != host_lines:
-            diff = next((i for i, (a, b) in enumerate(
-                zip(port_lines, host_lines)) if a != b),
-                min(len(port_lines), len(host_lines)))
-            raise AssertionError(
-                f"BED differs from the host path: {len(port_lines)} vs "
-                f"{len(host_lines)} lines, first difference at line {diff}")
-        log(f"  BED identical to ribbit_tpu's host path, in order: "
-            f"{len(port_lines)} lines")
+        same_bed(port_lines, host_lines, "the port's host route")
 
     for name, seq in genome:
         code, n_mask = encode(seq)
@@ -247,12 +314,23 @@ def phase_e2e(se, genome, cfg, dev):
     return launches, port_s, host_s, mb
 
 
+def same_bed(got, want, what: str):
+    """Raise unless two BED line lists are identical, in order."""
+    if got != want:
+        diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                    min(len(got), len(want)))
+        raise AssertionError(f"BED differs from {what}: {len(got)} vs "
+                             f"{len(want)} lines, first difference at line "
+                             f"{diff}")
+    log(f"  BED identical to {what}, in order: {len(got)} lines")
+
+
 def spec_runs(code, n_mask, cfg, stream: int, ch: int):
     """(starts, ends) of one channel of one stream (0 perfect, 1 q7, 2 q6)
-    by the numpy spec, ribbit_tpu.scan_host."""
+    by the numpy spec, the port's scan_host."""
     from types import SimpleNamespace
 
-    from ribbit_tpu import scan_host
+    from ribbit_tpu_torch import scan_host
 
     m = cfg.min_motif + ch
     lo = max(cfg.min_shift, m - 2)
@@ -303,16 +381,241 @@ def check_events(got, want, code, n_mask, cfg, name: str) -> int:
     return faults
 
 
+def round1_pairs(seq: str, cfg):
+    """The live (read, ref) pairs of refine_batched's first alignment
+    round on seq: the first batch its _device_align receives."""
+    import ribbit_tpu_torch.refine_batched as rb
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.encode import encode
+
+    class Captured(Exception):
+        pass
+
+    got = []
+
+    def capture(pairs, device):
+        got.extend(pairs)
+        raise Captured
+
+    code, n_mask = encode(seq)
+    sess = CoreSession(code, n_mask, cfg, nthreads=os.cpu_count() or 1)
+    real, rb._device_align = rb._device_align, capture
+    try:
+        rb.refine_batched(sess.scan(), seq, "route", code, n_mask, sess, cfg)
+    except Captured:
+        pass
+    finally:
+        rb._device_align = real
+        sess.close()
+    return [(r, f) for r, f in got if r.shape[0] and f.shape[0]]
+
+
+def reverse_pairs(reads, refs, fwd):
+    """Terminate-mode pairs as refine_batched._device_align builds them
+    from a forward result (int32 [4, n] on the host)."""
+    keep = [i for i in range(len(reads)) if fwd[1, i] >= 0]
+    return ([reads[i][:fwd[2, i] + 1][::-1].copy() for i in keep],
+            [refs[i][:fwd[1, i] + 1][::-1].copy() for i in keep],
+            [int(fwd[0, i]) for i in keep])
+
+
+def needed_cells(p, out) -> int:
+    """Cells a batch's passes need: every column of a forward pair, the
+    columns up to the first hit of a terminate pair that has one."""
+    out = out.cpu().numpy()
+    term = p.term.cpu().numpy()
+    cols = np.where((term >= 0) & (out[3] >= 0), out[3] + 1, p.clen)
+    return int((p.rlen * cols).sum())
+
+
+def check_ssw(kernel, reads, refs, terms, dev, what: str):
+    """Kernel against the plain version on one batch; the kernel's output
+    (int32 [4, n], host), the cells needed and the error (0)."""
+    from ribbit_tpu_torch import align_kernels as ak
+    p = ak.pack_pairs(reads, refs, terms, dev)
+    k = kernel(p)
+    w = ak.ssw_forward_ref(p)
+    torch.cuda.synchronize()
+    err = max_abs_err(k, w)
+    cells = needed_cells(p, k)
+    log(f"  {kernel.__name__} {what}: {p.n} pairs, {cells} cells, max "
+        f"read {int(p.rlen.max())}, err {err}")
+    if err:
+        raise AssertionError(f"{kernel.__name__} != plain version ({what})")
+    return k.cpu().numpy(), cells, err
+
+
+def edge_pairs(largest):
+    """(name, read, ref) pairs at the kernels' edges."""
+    from ribbit_tpu_torch import align_kernels as ak
+    rng = np.random.default_rng(0)
+
+    def repeat(n, noise=0.05):
+        unit = rng.integers(0, 4, int(rng.integers(2, 12))).astype(np.int8)
+        a = np.resize(unit, n).copy()
+        hit = rng.random(n) < noise
+        a[hit] = rng.integers(0, 5, int(hit.sum()))
+        return a, unit
+
+    def ppr(unit, n):
+        return np.resize(unit, n).astype(np.int8)
+
+    out = [("length 1, match", np.int8([2]), np.int8([2])),
+           ("length 1, mismatch", np.int8([2]), np.int8([1])),
+           ("length 1, N", np.int8([4]), np.int8([4]))]
+    for C in (160, 168):                 # 3 x 800 + C: 2560 fits, 2568 not
+        r, u = repeat(800)
+        out.append((f"3R+C={3 * 800 + C}", r, ppr(u, C)))
+    out.append(("all N", np.full(50, 4, np.int8), np.full(60, 4, np.int8)))
+    out.append(("largest round-1 pair", *largest))
+    perfect = rng.integers(0, 4, CLAMP_BP).astype(np.int8)
+    out.append((f"{CLAMP_BP} bp perfect match", perfect, perfect.copy()))
+    r, u = repeat(ak.SMEM_ROWS + 1072)
+    out.append(("read past shared memory", r, ppr(u, 600)))
+    return out
+
+
+def phase_ssw(seq: str, cfg, dev, rate):
+    """SSW kernels vs plain version, bit-equal; times and bounds at the
+    round-1 batch."""
+    from ribbit_tpu_torch import align_kernels as ak
+
+    t = time.perf_counter()
+    pairs = round1_pairs(seq, cfg)
+    log(f"  round 1 of refine_batched on {len(seq)} bp: {len(pairs)} live "
+        f"pairs ({time.perf_counter() - t:.1f} s on the host)")
+    kernels = {"ssw_forward_small": ak.ssw_forward_small,
+               "ssw_forward_large": ak.ssw_forward_large}
+    classes = {"ssw_forward_small": [], "ssw_forward_large": []}
+    for i, (r, f) in enumerate(pairs):
+        small = ak.fits(r.shape[0], f.shape[0])
+        classes["ssw_forward_small" if small else "ssw_forward_large"] \
+            .append(i)
+    stats = {}
+    for name, kernel in kernels.items():
+        reads = [pairs[i][0] for i in classes[name]]
+        refs = [pairs[i][1] for i in classes[name]]
+        fwd, cells, e_f = check_ssw(kernel, reads, refs, None, dev,
+                                    "round 1, forward")
+        _, _, e_r = check_ssw(kernel, *reverse_pairs(reads, refs, fwd), dev,
+                              "round 1, reverse (terminate)")
+        p = ak.pack_pairs(reads, refs, None, dev)
+        ms = cuda_ms(lambda: kernel(p), SSW_REPS)
+        plain_ms = cuda_ms(lambda: ak.ssw_forward_ref(p), 1)
+        bms, by = bound(p.read.numel() + p.ref.numel() + 16 * p.n,
+                        cells * ak.OPS_PER_CELL, rate)
+        stats[name] = dict(max_abs_err=max(e_f, e_r), ms=ms,
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        log(f"  {name} at the round-1 forward batch: {p.n} pairs, {cells} "
+            f"cells (largest pair {int((p.rlen * p.clen).max())}); kernel "
+            f"{ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS), "
+            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
+            f"({cells / bms / 1e6:.1f} GCUPS)")
+
+    largest = max(pairs, key=lambda rf: rf[0].shape[0] * rf[1].shape[0])
+    edges = edge_pairs(largest)
+    for name, kernel in kernels.items():
+        sel = [e for e in edges if name == "ssw_forward_large"
+               or ak.fits(e[1].shape[0], e[2].shape[0])]
+        reads, refs = [e[1] for e in sel], [e[2] for e in sel]
+        fwd, _, e_f = check_ssw(kernel, reads, refs, None, dev,
+                                "edge pairs, forward: "
+                                + "; ".join(e[0] for e in sel))
+        _, _, e_r = check_ssw(kernel, *reverse_pairs(reads, refs, fwd), dev,
+                              "edge pairs, reverse (terminate)")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e_f,
+                                         e_r)
+        clamp = [i for i, e in enumerate(sel) if e[0].endswith("match")
+                 and e[1].shape[0] == CLAMP_BP]
+        for i in clamp:
+            if fwd[0, i] != ak.WORD_MAX:
+                raise AssertionError(f"the {CLAMP_BP} bp match scored "
+                                     f"{fwd[0, i]}, not the clamp")
+            log(f"  {name}: the {CLAMP_BP} bp match scores {fwd[0, i]} "
+                "(clamped)")
+    return stats
+
+
+def phase_batched(seq: str, cfg, dev):
+    """RIBBIT_BATCHED_REFINE=1 through the port's CLI against the host and
+    default gpu routes; launches and the wall-time split."""
+    import ribbit_tpu_torch.refine_batched as rb
+    from ribbit_tpu_torch import align_kernels as ak
+    from ribbit_tpu_torch.cli import main as cli_main
+
+    spent = {"forward": 0.0, "traceback": 0.0}
+    batches = []
+
+    def timed(key, fn, count=False):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+                if count:
+                    batches.append(len(a[0]))
+        return wrapped
+
+    with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
+        fa = os.path.join(tmp, "route.fa")
+        write_fasta(fa, [("route", seq)])
+        beds = {}
+        for route, argv in (("host", ["--backend", "host"]),
+                            ("gpu", ["--backend", "gpu"])):
+            out = os.path.join(tmp, f"{route}.bed")
+            t = time.perf_counter()
+            if cli_main(argv + ["--device", str(dev), "-i", fa, "-o", out]):
+                raise AssertionError(f"the {route} route failed")
+            log(f"  --backend {route}: {time.perf_counter() - t:.2f} s")
+            with open(out) as fh:
+                beds[route] = fh.read().splitlines()
+
+        out = os.path.join(tmp, "batched.bed")
+        saved = (rb._batch_forward_split, rb.banded_sw, rb._mark_mismatch)
+        rb._batch_forward_split = timed("forward", saved[0], count=True)
+        rb.banded_sw = timed("traceback", saved[1])
+        rb._mark_mismatch = timed("traceback", saved[2])
+        os.environ["RIBBIT_BATCHED_REFINE"] = "1"
+        ak.ssw_forward_small.launches = 0
+        ak.ssw_forward_large.launches = 0
+        try:
+            t = time.perf_counter()
+            rc = cli_main(["--backend", "gpu", "--device", str(dev),
+                           "-i", fa, "-o", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            del os.environ["RIBBIT_BATCHED_REFINE"]
+            rb._batch_forward_split, rb.banded_sw, rb._mark_mismatch = saved
+        launches = {"ssw_forward_small": ak.ssw_forward_small.launches,
+                    "ssw_forward_large": ak.ssw_forward_large.launches}
+        if rc != 0:
+            raise AssertionError(f"the batched route exited {rc}")
+        with open(out) as fh:
+            batched = fh.read().splitlines()
+    log(f"  launches in the batched run: {launches}; {len(batches)} forward "
+        f"batches, {sum(batches)} pairs")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"an SSW kernel was not launched: {launches}")
+    same_bed(batched, beds["host"], "the port's host route")
+    same_bed(batched, beds["gpu"], "the port's default gpu route")
+    rest = wall - spent["forward"] - spent["traceback"]
+    log(f"  batched route {wall:.2f} s: forward passes (pack, kernels, "
+        f"copy back) {spent['forward']:.2f} s, host traceback "
+        f"{spent['traceback']:.2f} s, the rest {rest:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     import ribbit_tpu_torch.scan_events as se
-    from ribbit_tpu.config import RibbitConfig
-    from ribbit_tpu.core import get_core_lib
-    from ribbit_tpu.sim import simulate
     from ribbit_tpu_torch import cuda_build
+    from ribbit_tpu_torch.config import RibbitConfig
+    from ribbit_tpu_torch.sim import simulate
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
@@ -322,16 +625,12 @@ def main() -> int:
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc "
         f"{nvcc.stdout.strip().splitlines()[-1]}, python "
         f"{sys.version.split()[0]}")
+    rate = int32_ops_per_s()
 
     t = time.perf_counter()
-    cuda_build.load("scan_events")
-    log(f"[2] built and loaded ribbit_tpu_torch/csrc/scan_events.cu in "
-        f"{time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    if get_core_lib() is None:
-        raise RuntimeError("the shared C core (csrc/) did not build")
-    log(f"    built and loaded the shared C core in "
-        f"{time.perf_counter() - t:.1f} s")
+    log("[2] build")
+    phase_build()
+    log(f"    all built and loaded in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     chrom = simulate(num_loci=CHR21_BP // BP_PER_LOCUS, seed=38,
@@ -340,18 +639,31 @@ def main() -> int:
         (f"bench{ci}", simulate(num_loci=30, seed=42 + ci,
                                 name=f"bench{ci}").sequence)
         for ci in range(4)]
-    log(f"    genome simulated in {time.perf_counter() - t:.1f} s")
+    route = simulate(num_loci=ROUTE_LOCI, seed=ROUTE_SEED, n_block_rate=0.1,
+                     name="route").sequence
+    log(f"    genomes simulated in {time.perf_counter() - t:.1f} s")
 
     cfgs = (RibbitConfig.create(), RibbitConfig.create(min_motif=4,
                                                        max_motif=37))
-    log("[3] kernels against their plain versions on the card (bit-equal)")
-    err, times = phase_kernels(se, chrom, cfgs, dev)
+    log("[3] event kernels against their plain versions on the card "
+        "(bit-equal)")
+    err, times = phase_kernels(se, chrom, cfgs, dev, rate)
 
-    log("[4] end to end through the port's CLI, --backend gpu")
+    log("[4] event extraction end to end through the port's CLI, "
+        "--backend gpu")
     launches, port_s, host_s, mb = phase_e2e(se, genome, cfgs[0], dev)
     log(f"  e2e on {card}: port {port_s:.2f} s ({mb / port_s:.2f} Mbp/s), "
-        f"host path {host_s:.2f} s ({mb / host_s:.2f} Mbp/s), "
+        f"host route {host_s:.2f} s ({mb / host_s:.2f} Mbp/s), "
         f"{os.cpu_count()} host cores")
+    del chrom, genome
+
+    log("[5] SSW kernels against their plain version on the card "
+        "(bit-equal)")
+    ssw = phase_ssw(route, cfgs[0], dev, rate)
+
+    log(f"[6] device-batched refinement end to end ({len(route)} bp, "
+        "RIBBIT_BATCHED_REFINE=1)")
+    launches.update(phase_batched(route, cfgs[0], dev))
 
     src = "ribbit_tpu_torch/csrc/scan_events.cu"
     replaces = {"anchor_planes": "ribbit_tpu/scan_events_pallas.py:95",
@@ -359,7 +671,16 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": src,
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": err[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in replaces]
+                "plain_ms": times[k][1], "bound_ms": times[k][2],
+                "bound_by": times[k][3], "library_ms": None}
+               for k in replaces]
+    replaces = {"ssw_forward_small": "ribbit_tpu/align_pallas_v3.py:35",
+                "ssw_forward_large": "ribbit_tpu/align_pallas.py:59"}
+    kernels += [{"name": k, "route": "cuda",
+                 "source": "ribbit_tpu_torch/csrc/ssw_forward.cu",
+                 "replaces": replaces[k], "launches": launches[k],
+                 **ssw[k], "library_ms": None}
+                for k in replaces]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

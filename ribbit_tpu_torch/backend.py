@@ -1,11 +1,10 @@
-"""Backend selection for --backend auto (the default).
+"""Backend selection: the card unless the host is asked for by name.
 
-Counterpart of ribbit_tpu/backend.py without its link probe: a CUDA card
-sits on the host's own PCIe or NVLink, so whether it is there is the whole
-question.  'auto' resolves to 'gpu' when torch.cuda.is_available(), else
-to 'host', and says which on stderr.  An explicit choice passes through
-unchanged: an explicit 'gpu' on a machine without CUDA fails later,
-loudly, rather than running on the host.
+Counterpart of ribbit_tpu/backend.py without its link probe.  'gpu' is
+the default; 'auto' stays as a flag-compatible alias of it and says so on
+stderr.  Neither falls back to the host: without CUDA a gpu run on
+--device cuda fails loudly (cli.py checks before any output is written).
+'host' runs the C core alone, and only when named.
 """
 
 from __future__ import annotations
@@ -14,19 +13,22 @@ import sys
 
 import torch
 
-BACKENDS = ("auto", "host", "gpu")
+BACKENDS = ("gpu", "host", "auto")
 
 
-def resolve_backend(requested: str = "auto") -> str:
+def resolve_backend(requested: str = "gpu") -> str:
     """'host' or 'gpu' for a requested backend."""
     if requested not in BACKENDS:
         raise ValueError(f"unknown backend {requested!r}")
     if requested != "auto":
         return requested
-    if torch.cuda.is_available():
-        choice, why = "gpu", f"CUDA device {torch.cuda.get_device_name(0)}"
-    else:
-        choice, why = "host", "torch.cuda.is_available() is False"
-    print(f"ribbit-tpu-torch: backend auto -> {choice} ({why})",
-          file=sys.stderr)
-    return choice
+    print("ribbit-tpu-torch: backend auto -> gpu (auto is an alias of gpu; "
+          "name --backend host for the C core alone)", file=sys.stderr)
+    return "gpu"
+
+
+def require_cuda(device) -> None:
+    """Raise if `device` is a CUDA device and CUDA is unavailable."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested, but "
+                           "torch.cuda.is_available() is False")

@@ -3,10 +3,13 @@
 
     python -m ribbit_tpu_torch.cli -i genome.fa -o out.bed [--backend gpu]
 
---backend {auto,host,gpu} replaces {auto,host,tpu}; --device picks the
-torch device of the gpu backend (default cuda; cpu runs the kernels' plain
-PyTorch versions, for tests).  The multi-host flags wait for the port's
-multi-host layer and are refused.
+--backend {gpu,host,auto} replaces {auto,host,tpu}: gpu is the default,
+auto an alias of it, and host runs only when named.  --device picks the
+torch device of the kernels (default cuda; cpu runs their plain PyTorch
+versions, for tests).  With RIBBIT_BATCHED_REFINE set, refinement runs
+through refine_batched with its SSW forward passes on --device, on either
+backend.  The multi-host flags wait for the port's multi-host layer and
+are refused.
 """
 
 from __future__ import annotations
@@ -17,10 +20,9 @@ import os
 import sys
 import time
 
-from ribbit_tpu.cli import _maybe_int
-from ribbit_tpu.config import RibbitConfig
-
-from .backend import BACKENDS, resolve_backend
+from .backend import BACKENDS, require_cuda, resolve_backend
+from .config import RibbitConfig
+from .host import batched_refine_requested
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,14 +49,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="minimum repeat units: integer or TSV")
     p.add_argument("--perfect-units", default=None,
                    help="minimum perfect units: integer or TSV")
-    p.add_argument("--backend", choices=BACKENDS, default="auto",
-                   help="compute backend (default auto: 'gpu' when "
-                        "torch.cuda.is_available(), else 'host'). 'gpu' "
-                        "extracts events with the CUDA kernels and fails "
-                        "if they cannot run; output stays byte-identical")
+    p.add_argument("--backend", choices=BACKENDS, default="gpu",
+                   help="compute backend (default gpu; auto is an alias "
+                        "of gpu). 'gpu' extracts events with the CUDA "
+                        "kernels and fails if they cannot run; 'host' runs "
+                        "the C core alone; output stays byte-identical")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the gpu backend (default cuda; "
-                        "cpu runs the kernels' plain PyTorch versions)")
+                   help="torch device of the kernels (default cuda; cpu "
+                        "runs their plain PyTorch versions)")
     p.add_argument("--stderr-output", action="store_true",
                    help="mirror the reference quirk of writing results to "
                         "stderr when no -o is given")
@@ -83,6 +85,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _maybe_int(v):
+    """An integer option's value, or the string as a TSV path (a copy of
+    ribbit_tpu.cli._maybe_int)."""
+    if v is None:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        return v  # treat as TSV path
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -105,6 +118,12 @@ def main(argv=None) -> int:
         perfect_units=_maybe_int(args.perfect_units),
     )
     backend = resolve_backend(args.backend)
+    if backend == "gpu" or batched_refine_requested():
+        try:
+            require_cuda(args.device)
+        except RuntimeError as exc:
+            print(f"ribbit-tpu-torch: error: {exc}", file=sys.stderr)
+            return 2
 
     # the resume manifest is read BEFORE the output file is opened (mode
     # "w" would truncate the partial results being resumed)

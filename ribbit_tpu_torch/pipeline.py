@@ -1,5 +1,5 @@
 """End-to-end pipeline of the port: events extracted on the GPU, replayed
-and refined by the shared C core.
+and refined by the C core, or refined with SSW scoring on the GPU.
 
 Counterpart of the device branches of ribbit_tpu/pipeline.py (the
 `scan_backend="tpu"` route of _process_core and the multi-contig
@@ -7,14 +7,23 @@ producer/consumer loop _fasta_records_tpu_overlap).  Per contig:
 
   encode -> scan_events_segmented (8 Mi-bp segments + halo, each through
   scan_events.scan_events_device on `device`) -> CoreSession.set_events
-  -> scan -> refine -> BED lines
+  -> scan -> refine in the C pool -> BED lines
 
-Every contig refines in the shared C pool, as the JAX package's overlap
-loop does; its single-contig batched-SSW route (refine_batched, Pallas
-kernels K3/K4) is not ported yet.  `--backend host` and contigs of
-MAX_CONTIG bp or more go to ribbit_tpu.pipeline, which imports no jax on
-those routes.  There is no fallback: a device, build or launch failure
-raises.
+With RIBBIT_BATCHED_REFINE set (any non-empty value), the refine step is
+refine_batched instead: the SSW forward and reverse passes of every
+alignment run as batches through the CUDA kernels on `device`
+(align_kernels), the traceback on the host; records are then processed
+one at a time rather than through the overlap loop, as
+ribbit_tpu/pipeline.py:448-465 does.  Deviation from the JAX package:
+there a single-contig `--backend tpu` run takes the batched route even
+without the variable (ribbit_tpu/pipeline.py:115).  The port does not,
+because the route's host traceback (align.banded_sw, pure Python, ~4 ms a
+pair) makes it far slower than the C pool: a single-chromosome FASTA
+would go from seconds to hours.
+
+`--backend host` and contigs of MAX_CONTIG bp or more go to the port's
+host route (host.py).  There is no fallback: a device, build or launch
+failure raises.
 """
 
 from __future__ import annotations
@@ -25,13 +34,13 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
-from ribbit_tpu import pipeline as host_pipeline
-from ribbit_tpu.config import RibbitConfig
-from ribbit_tpu.core import MAX_CONTIG, CoreSession
-from ribbit_tpu.encode import encode
-from ribbit_tpu.eventstitch import scan_events_segmented
-from ribbit_tpu.fasta import read_fasta
-
+from . import host as host_pipeline
+from .config import RibbitConfig
+from .core import MAX_CONTIG, CoreSession
+from .encode import encode
+from .eventstitch import scan_events_segmented
+from .fasta import read_fasta
+from .host import batched_refine_requested
 from .scan_events import scan_events_device
 
 SEG_SIZE = 8 << 20   # bp per device segment (eventstitch's default)
@@ -49,11 +58,19 @@ def extract_events(code, n_mask, cfg: RibbitConfig, device="cuda",
 
 
 def _replay_refine(sid: str, seq: str, code, n_mask, events,
-                   cfg: RibbitConfig, nthreads: int) -> List[str]:
+                   cfg: RibbitConfig, nthreads: int,
+                   device=None) -> List[str]:
+    """Replay the events in the C core, then refine the seeds in the C
+    pool, or with refine_batched on `device` when one is given."""
     sess = CoreSession(code, n_mask, cfg, nthreads=nthreads)
     try:
         sess.set_events(*events)
-        return sess.refine(sess.scan(), seq, sid)
+        seeds = sess.scan()
+        if device is None:
+            return sess.refine(seeds, seq, sid)
+        from .refine_batched import refine_batched
+        return refine_batched(seeds, seq, sid, code, n_mask, sess, cfg,
+                              device=device)
     finally:
         sess.close()
 
@@ -75,7 +92,8 @@ def process_sequence(sequence_id: str, sequence: str, cfg: RibbitConfig,
         return lines
     if scan_backend == "host":
         return host_pipeline.process_sequence(sequence_id, sequence, cfg,
-                                              out=lines, nthreads=nthreads)
+                                              out=lines, nthreads=nthreads,
+                                              device=device)
     if scan_backend != "gpu":
         raise ValueError(f"unknown scan backend {scan_backend!r}")
     if len(sequence) >= MAX_CONTIG:
@@ -83,8 +101,9 @@ def process_sequence(sequence_id: str, sequence: str, cfg: RibbitConfig,
         return lines
     code, n_mask = encode(sequence)
     events = extract_events(code, n_mask, cfg, device)
-    lines.extend(_replay_refine(sequence_id, sequence, code, n_mask, events,
-                                cfg, nthreads))
+    lines.extend(_replay_refine(
+        sequence_id, sequence, code, n_mask, events, cfg, nthreads,
+        device if batched_refine_requested() else None))
     return lines
 
 
@@ -97,18 +116,18 @@ def process_fasta_records(path: str, cfg: RibbitConfig,
     records named in `skip` yield (name, length, None).
 
     `workers` and `chunk_size` apply to 'host', whose records go to
-    ribbit_tpu.pipeline as it takes them; 'gpu' bounds device memory by
-    its fixed segment size instead."""
+    host.py as it takes them; 'gpu' bounds device memory by its fixed
+    segment size instead."""
     if scan_backend == "host":
         yield from host_pipeline.process_fasta_records(
-            path, cfg, "host", "core", workers, chunk_size, skip)
+            path, cfg, workers, chunk_size, skip, device=device)
         return
     if scan_backend != "gpu":
         raise ValueError(f"unknown scan backend {scan_backend!r}")
     records = list(read_fasta(path))
     todo = [(i, sid, seq) for i, (sid, seq) in enumerate(records)
             if not (skip and sid in skip)]
-    if len(todo) > 1:
+    if len(todo) > 1 and not batched_refine_requested():
         yield from _fasta_records_overlap(records, todo, cfg, device)
         return
     for sid, seq in records:

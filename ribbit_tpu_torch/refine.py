@@ -1,0 +1,200 @@
+"""Seed refinement helpers: motif inference, the pseudo-perfect repeat,
+purity formatting and motif-unit counting, as refine_batched uses them.
+
+Ports (with file:line citations into the reference sources):
+  - mostFrequentLongerMotif     parse_seed.cpp:153-256 (diagonal voting, ±2 jitter)
+  - processSeed's helpers       parse_seed.cpp:318-464
+  - possibleMotifs              parse_smallmotif_seed.cpp:76-188
+  - calculateMotifUnits         parse_smallmotif_seed.cpp:26-72
+
+Float expressions that the reference evaluates in C++ `float` (purity, the
+pseudo-perfect-repeat length) are done in np.float32 to keep emitted values
+and truncations bit-identical.
+
+The port's copy of the parts of ribbit_tpu/refine.py that refine_batched
+needs, which it may not import.  mostFrequentLongerMotif runs in the C
+core only (csrc/ribbit_vote.c); the numpy voting and the Python engine's
+process_seed / process_seed_motifwise are not copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from .config import RibbitConfig, PURITY_THRESHOLD
+from . import bitutils
+
+
+def format_purity(p: np.float32) -> str:
+    """C++ `ostream << float` default formatting: 6 significant digits."""
+    return f"{float(p):.6g}"
+
+
+def _ppr_length(seed_sequence_length: int, motif_length: int) -> int:
+    """int ppr = ssl + m + ((1-PURITY_THRESHOLD)*ssl) with C++ float
+    arithmetic and int truncation (parse_seed.cpp:381)."""
+    f = (np.float32(1) - PURITY_THRESHOLD) * np.float32(seed_sequence_length)
+    return int(np.float32(seed_sequence_length + motif_length) + f)
+
+
+def _build_ppr(motif: str, ppr_length: int) -> str:
+    s = ""
+    while len(s) <= ppr_length:
+        s += motif
+    return s[:ppr_length]  # Align() truncates the ref to ppr_length anyway
+
+
+def most_frequent_longer_motif(code: np.ndarray, n_mask: np.ndarray,
+                               seed_start: int, seed_sequence_length: int,
+                               motif_length: int, sequence_length: int) -> int:
+    """mostFrequentLongerMotif (parse_seed.cpp:153-256) in the C core
+    (ribbit_vote_longer): greedy diagonal voting with ±2 bp jitter per
+    unit; returns the motif unit at the winning row start."""
+    from .native import get_vote_lib
+    mm = get_vote_lib().ribbit_vote_longer(
+        code.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        n_mask.view(np.uint8).ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        code.shape[0], seed_start, seed_sequence_length, motif_length)
+    unit = 0
+    for c in code[mm:mm + motif_length].tolist():
+        unit = (unit << 2) | int(c)
+    # QUIRK: the reference packs the motif into a uint256_t
+    # (parse_seed.cpp:246-253), so for motif_length > 128 the leading
+    # 2*(m-128) bits overflow away and those bases read back as 'A'
+    return unit & ((1 << 256) - 1)
+
+
+def _n_trimmed_length(n_mask: np.ndarray, seed_start: int, seed_end: int,
+                      motif_length: int) -> int:
+    """Trim the seed sequence at the first N (parse_seed.cpp:349-354)."""
+    ssl = seed_end - seed_start + motif_length
+    lim = seed_end + motif_length
+    sub = n_mask[seed_start:lim]
+    nz = np.flatnonzero(sub)
+    if nz.size:
+        return int(nz[0])
+    return ssl
+
+
+def possible_motifs(code: np.ndarray, seed_start: int,
+                    seed_sequence_length: int, motif_length: int,
+                    sequence_length: int, cfg: RibbitConfig
+                    ) -> tuple[list[int], list[int], list[int]]:
+    """possibleMotifs (parse_smallmotif_seed.cpp:76-188): per-repeat-class run
+    tracking over a sliding 2m-bit window.  Returns (motifs, starts, ends)."""
+    m = motif_length
+    mask = (1 << (2 * m)) - 1
+    seed_end = seed_start + seed_sequence_length
+    if seed_end > sequence_length - 1:
+        seed_end = sequence_length - 1
+
+    motifs: list[int] = []
+    starts: list[int] = []
+    ends: list[int] = []
+
+    new_motif_start: dict[int, int] = {}
+    M_START: dict[int, int] = {}
+    M_END: dict[int, int] = {}
+    M_UNITS: dict[int, int] = {}
+    M_GAPS: dict[int, int] = {}
+    M_GAPSIZE: dict[int, int] = {}
+    M_NEXT: dict[int, int] = {}
+
+    min_len = cfg.min_length(m)
+    perf_units = cfg.n_perfect_units(m)
+    guard = 0.9 * m - 1
+    window = 0
+
+    for j in range(seed_start, seed_end):
+        window = ((window << 2) | int(code[j])) & mask
+        motif = bitutils.repeat_class(window, m)
+        wstart = j - (m - 1)
+        wend = j + 1
+
+        if j - seed_start >= guard:
+            rotated = ((window << 2) | (window >> ((m - 1) * 2))) & mask
+            if motif not in new_motif_start:
+                new_motif_start[motif] = wstart
+                M_START[motif] = wstart
+                M_END[motif] = wend
+                M_UNITS[motif] = 1
+                M_GAPS[motif] = 0
+                M_GAPSIZE[motif] = 0
+                M_NEXT[motif] = rotated
+            else:
+                if wstart - M_END[motif] > 3 * m:
+                    if (M_END[motif] - M_START[motif] >= min_len and
+                            M_UNITS[motif] >= perf_units):
+                        motifs.append(motif)
+                        starts.append(M_START[motif])
+                        ends.append(M_END[motif])
+                    M_START[motif] = wstart
+                    M_END[motif] = wend
+                    M_UNITS[motif] = 1
+                    M_GAPS[motif] = 0
+                    M_GAPSIZE[motif] = 0
+                    M_NEXT[motif] = rotated
+                    new_motif_start[motif] = wstart
+                else:
+                    if M_END[motif] < j:
+                        gap = j - M_END[motif]
+                        if gap < m:
+                            M_GAPS[motif] += 1
+                            M_GAPSIZE[motif] += 1
+                        elif gap % m > 0:
+                            M_GAPS[motif] += gap // m + 1
+                            M_GAPSIZE[motif] += gap + 1
+                        else:
+                            M_GAPS[motif] += gap // m
+                            M_GAPSIZE[motif] += gap
+                    elif M_END[motif] == j and M_NEXT[motif] != window:
+                        M_GAPS[motif] += 1
+                        M_GAPSIZE[motif] += 1
+
+                    if wstart - new_motif_start[motif] >= m:
+                        new_motif_start[motif] = wstart
+                        M_UNITS[motif] += 1
+                    M_END[motif] = wend
+                    M_NEXT[motif] = rotated
+
+    # leftover motifs; the reference iterates an unordered_map here
+    # (parse_smallmotif_seed.cpp:177-187) — order replicated in
+    # umap_order.libstdcxx_order
+    from .umap_order import libstdcxx_order
+    for motif in libstdcxx_order(list(new_motif_start.keys())):
+        if (M_END[motif] - M_START[motif] >= min_len and
+                M_UNITS[motif] >= perf_units):
+            motifs.append(motif)
+            starts.append(M_START[motif])
+            ends.append(M_END[motif])
+
+    return motifs, starts, ends
+
+
+def calculate_motif_units(code: np.ndarray, start: int, length: int,
+                          motif_length: int, sequence_length: int,
+                          motif_unit: int) -> int:
+    """calculateMotifUnits (parse_smallmotif_seed.cpp:26-72)."""
+    m = motif_length
+    mask = (1 << (2 * m)) - 1
+    seed_end = start + length
+    if seed_end > sequence_length - 1:
+        seed_end = sequence_length - 1
+    window = 0
+    motif_position: dict[int, int] = {}
+    motif_units: dict[int, int] = {}
+    guard = 0.9 * m - 1
+    for j in range(start, seed_end):
+        window = ((window << 2) | int(code[j])) & mask
+        if j - start >= guard:
+            motif = bitutils.repeat_class(window, m)
+            if motif not in motif_position:
+                motif_position[motif] = j - (m - 1)
+                motif_units[motif] = 1
+            else:
+                if (j - (m - 1)) - motif_position[motif] >= m:
+                    motif_position[motif] = j - (m - 1)
+                    motif_units[motif] += 1
+    return motif_units.get(motif_unit, 0)

@@ -3,7 +3,7 @@ the host decode of their bitmap words into event streams.
 
 Counterpart of ribbit_tpu/scan_events_pallas.py (whose module imports jax,
 so the decode glue below is a copy; the C decoder it drives,
-csrc/ribbit_events.c, stays shared).
+csrc/ribbit_events.c, is the repository's C core, built by native.py).
 
   anchor_planes  replaces the Pallas anchor pass (_anchor_kernel).  The
                  planes never leave the device, so their layout is the
@@ -28,7 +28,8 @@ import functools
 import numpy as np
 import torch
 
-from ribbit_tpu.config import ANCHOR_SIZE, WINDOW_LENGTH, RibbitConfig
+from .backend import require_cuda
+from .config import ANCHOR_SIZE, WINDOW_LENGTH, RibbitConfig
 
 OUT_ROWS = 8        # shift rows per event word (3 fields of 8 bits)
 K1_ROWS = 16        # shift rows per word of the Pallas anchor planes
@@ -304,12 +305,9 @@ def _decode_c(w: np.ndarray, cfg: RibbitConfig):
     """Threaded C decoder (csrc/ribbit_events.c), one thread per plane;
     same contract as _decode_numpy."""
     from concurrent.futures import ThreadPoolExecutor
-    from ribbit_tpu.native import get_events_lib
+    from .native import get_events_lib
 
     lib = get_events_lib()
-    if lib is None:
-        raise RuntimeError("native event decoder unavailable (C build "
-                           "failed or RIBBIT_NO_NATIVE is set)")
 
     nm = cfg.nmotifs
     r0 = cfg.min_motif - cfg.min_shift
@@ -380,12 +378,10 @@ def flagwords(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig,
     if np.dtype(code.dtype).itemsize != 1 or np.dtype(
             n_mask.dtype).itemsize != 1:
         raise ValueError(f"flagwords: want 1-byte code and n_mask (as "
-                         f"ribbit_tpu.encode gives), got {code.dtype}, "
+                         f"encode gives), got {code.dtype}, "
                          f"{n_mask.dtype}")
+    require_cuda(device)
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device extraction on CUDA requested, but "
-                           "torch.cuda.is_available() is False")
     c = torch.from_numpy(np.ascontiguousarray(code).view(np.uint8)).to(dev)
     n = torch.from_numpy(np.ascontiguousarray(n_mask).view(np.uint8)).to(dev)
     return event_words(c, n, anchor_planes(c, cfg), cfg).cpu().numpy()

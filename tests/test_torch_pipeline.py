@@ -19,7 +19,7 @@ from ribbit_tpu.sim import simulate
 import ribbit_tpu_torch.pipeline as pl
 import ribbit_tpu_torch.scan_events as se
 from ribbit_tpu_torch.backend import resolve_backend
-from ribbit_tpu_torch.cli import main as cli_main
+from ribbit_tpu_torch.cli import build_parser, main as cli_main
 
 torch.set_num_threads(2)
 
@@ -184,10 +184,37 @@ def test_multihost_flags_are_refused(golden_dir, capsys):
 
 
 def test_resolve_backend(capsys):
+    """gpu unless host is named: auto is an alias of gpu, whether or not
+    this machine has CUDA."""
     assert resolve_backend("gpu") == "gpu"
     assert resolve_backend("host") == "host"
-    want = "gpu" if torch.cuda.is_available() else "host"
-    assert resolve_backend("auto") == want
-    assert f"backend auto -> {want}" in capsys.readouterr().err
+    assert resolve_backend("auto") == "gpu"
+    assert "backend auto -> gpu" in capsys.readouterr().err
+    assert resolve_backend() == "gpu"
+    assert build_parser().parse_args(["-i", "x.fa"]).backend == "gpu"
     with pytest.raises(ValueError):
         resolve_backend("tpu")
+
+
+@pytest.mark.parametrize("argv,batched", [
+    (["--backend", "auto"], False), ([], False), (["--backend", "gpu"], True),
+    (["--backend", "host"], True)], ids=["auto", "default", "gpu-batched",
+                                          "host-batched"])
+def test_no_cuda_exits_nonzero_without_output(golden_dir, tmp_path, argv,
+                                              batched):
+    """Without CUDA, every run that needs the card (the default, auto, and
+    the batched route on either backend) exits non-zero before writing a
+    BED line."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    out = tmp_path / "out.bed"
+    env = _env()
+    if batched:
+        env["RIBBIT_BATCHED_REFINE"] = "1"
+    r = subprocess.run([sys.executable, "-m", "ribbit_tpu_torch", *argv,
+                        "-i", str(golden_dir / "g3.fa"), "-o", str(out)],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=300)
+    assert r.returncode != 0
+    assert "torch.cuda.is_available() is False" in r.stderr
+    assert not out.exists()
