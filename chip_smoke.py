@@ -59,6 +59,14 @@ INT32_LANES_PER_SM = 64        # Hopper: int32 results per SM per clock
 # least: the byte compare (anchor_planes); the compare, the overlay OR and
 # one operation for each of the two 8-windows (event_words)
 SCAN_OPS = {"anchor_planes": 1, "event_words": 4}
+# int32 issue slots per DP cell that SSW's recurrence needs at least: 7
+# fused Hopper operations (DPX add-min for diag's add and clamp; max3 for
+# h0, H and E; add-max for F's and E's gap steps; one max for the column
+# max), the match score read from a query profile and the argmax taken per
+# column, not per cell; every value is <= 32767, so the s16x2 forms take
+# two cells to a 32-bit slot.  NVIDIA publishes no separate DPX rate: the
+# slots are held against the int32 rate.
+SSW_OPS_PER_CELL = 7 / 2
 SOURCES = ("scan_events", "ssw_forward")
 
 
@@ -503,7 +511,7 @@ def phase_ssw(seq: str, cfg, dev, rate):
         ms = cuda_ms(lambda: kernel(p), SSW_REPS)
         plain_ms = cuda_ms(lambda: ak.ssw_forward_ref(p), 1)
         bms, by = bound(p.read.numel() + p.ref.numel() + 16 * p.n,
-                        cells * ak.OPS_PER_CELL, rate)
+                        cells * SSW_OPS_PER_CELL, rate)
         stats[name] = dict(max_abs_err=max(e_f, e_r), ms=ms,
                            plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         log(f"  {name} at the round-1 forward batch: {p.n} pairs, {cells} "

@@ -3,7 +3,7 @@ their plain PyTorch version.
 
 Counterpart of ribbit_tpu/align_pallas_v3.py and ribbit_tpu/align_pallas.py
 (whose modules import jax).  Both compute the exact forward pass of
-align.ssw_align for a batch of (read, ref) pairs of codes 0-4 and return
+SSW (ribbit_tpu/align.py ssw_align) for a batch of (read, ref) pairs of codes 0-4 and return
 int32 [4, n]: score, end_ref, end_read and first_hit (the first column
 whose max equals the pair's terminate target, in terminate mode; else -1).
 
@@ -38,10 +38,6 @@ GAP_E = 1
 WORD_MAX = 32767
 RB = 8                   # fits(): rows are counted in blocks of 8
 MAX_ROWS = 2560          # fits(): 3R + C cap of the one-pair-per-lane class
-# int32 operations per DP cell in the kernels' inner loop (csrc header):
-# the lazy F (3), the score select (3), diag and its clamp (2), h0 (2),
-# H (2), E (4), the column-max update (3)
-OPS_PER_CELL = 19
 # rows whose H and E (8 B a row) fit the large kernel's dynamic shared
 # memory: 227 KiB a block on Hopper, less 1 KiB for its static arrays
 SMEM_ROWS = (232448 - 1024) // 8

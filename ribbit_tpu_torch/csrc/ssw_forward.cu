@@ -36,13 +36,18 @@
 //   (smem_rows), otherwise in global scratch at the pair's read offset.
 //   There is no row cap.
 //
-// What bounds them on this card: integer operations.  A cell costs ~19
-// int32 operations (the recurrence above, the column-max update) and reads
-// nothing from device memory beyond the pair's codes, so the bound is
-// cells x 19 over the SMs' int32 rate (132 SMs x 64 lanes x clock).  Both
-// kernels here are simple: one 32-bit lane per cell, no int16 lanes, no
-// striping, no anti-diagonal wavefronts.  The small kernel's scratch
-// traffic (17 B a cell) stays in L1/L2 for pairs within fits().
+// What bounds them on this card: integer operations.  The recurrence needs
+// at least 7 fused operations a cell (DPX add-min for diag, max3 for h0, H
+// and E, add-max for the F and E gap steps, a max for the column) and
+// reads nothing from device memory beyond the pair's codes; on 16-bit
+// values (every score is <= 32767) the s16x2 forms take two cells a 32-bit
+// slot, so the bound is cells x 3.5 over the SMs' int32 rate (132 SMs x 64
+// lanes x clock).  These kernels spend more: about 19 int32 operations a
+// cell in the inner loop (the score select, the column max and its row
+// each cell), one 32-bit lane per cell, no striping, no anti-diagonal
+// wavefronts.  The small kernel moves 17 B of scratch a cell (H, E and the
+// read, [row][thread]); where those accesses are served from (L1, L2 or
+// HBM) was not measured.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

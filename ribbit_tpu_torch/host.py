@@ -91,7 +91,8 @@ def process_sequence(sequence_id: str, sequence: str, cfg: RibbitConfig,
         over_chunk = min(8 << 20, len(sequence) // 8)
         lines.extend(process_sequence_chunked(
             sequence_id, sequence, cfg, chunk_size=over_chunk,
-            halo=min(1 << 16, over_chunk // 4), strict=True))
+            halo=min(1 << 16, over_chunk // 4), strict=True,
+            device=device))
         return lines
     _process_core(sequence_id, sequence, cfg, lines.append,
                   nthreads=nthreads, device=device)
@@ -150,7 +151,8 @@ def process_sequence_chunked(sequence_id: str, sequence: str,
                              chunk_size: int = 8 << 20,
                              halo: int = 1 << 16,
                              workers: Optional[int] = None,
-                             strict: bool = False) -> List[str]:
+                             strict: bool = False,
+                             device="cuda") -> List[str]:
     """Chunked processing of one long contig, BYTE-IDENTICAL to the
     whole-contig run at ANY split points.
 
@@ -171,17 +173,20 @@ def process_sequence_chunked(sequence_id: str, sequence: str,
 
     Contigs past the native core's i32 position range cannot hold a global
     session and fall back to independent split processing
-    (_process_chunked_split; exact only at big-N-run splits)."""
+    (_process_chunked_split; exact only at big-N-run splits).  `device` is
+    where refine_batched's forward passes run for the contigs and chunks
+    that go through process_sequence."""
     L = len(sequence)
     if L <= chunk_size + chunk_size // 2:
-        return process_sequence(sequence_id, sequence, cfg)
+        return process_sequence(sequence_id, sequence, cfg, device=device)
     if L >= MAX_CONTIG:
         # strict=True: prefer exact big-N-run splits; the no-N-run branch
         # inside prints the best-effort warning before degrading, keeping
         # the documented byte-identical contract honest for over-cap input
         return _process_chunked_split(sequence_id, sequence, cfg,
                                       chunk_size=chunk_size, halo=halo,
-                                      workers=workers, strict=True)
+                                      workers=workers, strict=True,
+                                      device=device)
     ncpu = workers or os.cpu_count() or 1
     code, n_mask = encode(sequence)
     perf, q7, q6 = scan_events_segmented(
@@ -201,7 +206,8 @@ def _process_chunked_split(sequence_id: str, sequence: str,
                            chunk_size: int = 8 << 20,
                            halo: int = 1 << 16,
                            workers: Optional[int] = None,
-                           strict: bool = False) -> List[str]:
+                           strict: bool = False,
+                           device="cuda") -> List[str]:
     """Independent-chunk processing (the pre-stitch design): splits at
     big-N-run midpoints when possible, raw offsets otherwise; each chunk
     replays its own lattices.  Only used for contigs past the native
@@ -209,7 +215,7 @@ def _process_chunked_split(sequence_id: str, sequence: str,
     raw cuts."""
     L = len(sequence)
     if L <= chunk_size + chunk_size // 2:
-        return process_sequence(sequence_id, sequence, cfg)
+        return process_sequence(sequence_id, sequence, cfg, device=device)
 
     _code, n_mask = encode(sequence)
     splits = _choose_splits(n_mask, chunk_size, strict=strict)
@@ -224,7 +230,7 @@ def _process_chunked_split(sequence_id: str, sequence: str,
         strict = False
         splits = _choose_splits(n_mask, chunk_size, strict=False)
     if not splits:
-        return process_sequence(sequence_id, sequence, cfg)
+        return process_sequence(sequence_id, sequence, cfg, device=device)
     if strict:
         # N-run-midpoint splits need no halo: no seed, window, qualified
         # run, or anchor-eligible eq-run can span the midpoint of an N-run
@@ -249,7 +255,8 @@ def _process_chunked_split(sequence_id: str, sequence: str,
     def run_chunk(t):
         lo, hi, core_lo, core_hi = t
         sub = sequence[lo:hi]
-        lines = process_sequence(sequence_id, sub, cfg, nthreads=ncpu)
+        lines = process_sequence(sequence_id, sub, cfg, nthreads=ncpu,
+                                 device=device)
         out = []
         for line in lines:
             cols = line.split("\t")
@@ -296,7 +303,8 @@ def process_fasta_records(path: str, cfg: RibbitConfig,
             # at any cut (per-chunk event capture + stitch + one global
             # lattice replay)
             return process_sequence_chunked(sid, seq, cfg,
-                                            chunk_size=chunk_size)
+                                            chunk_size=chunk_size,
+                                            device=device)
         # deliberately oversubscribe: contig sizes are highly imbalanced
         # and work-conserving scheduling beats static core partitioning
         return process_sequence(sid, seq, cfg,

@@ -53,20 +53,6 @@ def _compile(srcs) -> pathlib.Path:
 
 
 @functools.cache
-def get_align_lib():
-    """The C core with its aligner entry bound."""
-    from .core import get_core_lib
-    base = get_core_lib()
-    base.ribbit_align.restype = ctypes.c_int
-    base.ribbit_align.argtypes = [
-        ctypes.POINTER(ctypes.c_int8), ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int8), ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32,
-    ]
-    return base
-
-
-@functools.cache
 def get_events_lib():
     """The C core with its flagword decoder entry bound."""
     from .core import get_core_lib

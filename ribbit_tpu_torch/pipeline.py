@@ -75,11 +75,11 @@ def _replay_refine(sid: str, seq: str, code, n_mask, events,
         sess.close()
 
 
-def _over_cap(sid: str, seq: str, cfg: RibbitConfig) -> List[str]:
+def _over_cap(sid: str, seq: str, cfg: RibbitConfig, device) -> List[str]:
     print(f"ribbit-tpu-torch: {sid} ({len(seq)} bp) is past the native "
           "core's 2^31-64 bp range; processing it on the host's chunked "
           "path", file=sys.stderr)
-    return host_pipeline.process_sequence(sid, seq, cfg)
+    return host_pipeline.process_sequence(sid, seq, cfg, device=device)
 
 
 def process_sequence(sequence_id: str, sequence: str, cfg: RibbitConfig,
@@ -97,7 +97,7 @@ def process_sequence(sequence_id: str, sequence: str, cfg: RibbitConfig,
     if scan_backend != "gpu":
         raise ValueError(f"unknown scan backend {scan_backend!r}")
     if len(sequence) >= MAX_CONTIG:
-        lines.extend(_over_cap(sequence_id, sequence, cfg))
+        lines.extend(_over_cap(sequence_id, sequence, cfg, device))
         return lines
     code, n_mask = encode(sequence)
     events = extract_events(code, n_mask, cfg, device)
@@ -175,7 +175,7 @@ def _fasta_records_overlap(records, todo, cfg: RibbitConfig, device):
                 if not seq:
                     yield sid, 0, []
                 elif res is None:
-                    yield sid, len(seq), _over_cap(sid, seq, cfg)
+                    yield sid, len(seq), _over_cap(sid, seq, cfg, device)
                 else:
                     code, n_mask, events = res
                     yield sid, len(seq), _replay_refine(

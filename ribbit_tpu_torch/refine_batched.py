@@ -76,7 +76,7 @@ def _device_align(pairs: List[Tuple[np.ndarray, np.ndarray]],
                   device) -> List[Optional[Alignment]]:
     """Exact Align() for a batch of (read, ref) code pairs: device forward +
     device reverse (terminate mode), host banded traceback + '='/'X' split.
-    Equivalent to align.ssw_align pair-by-pair."""
+    Equivalent to ribbit_tpu/align.py ssw_align pair-by-pair."""
     out: List[Optional[Alignment]] = [None] * len(pairs)
     live = [i for i, (rd, rf) in enumerate(pairs)
             if rd.shape[0] and rf.shape[0]]

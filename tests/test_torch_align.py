@@ -1,8 +1,9 @@
 """The port's SSW forward scoring (ribbit_tpu_torch.align_kernels) against
 the JAX package: the plain PyTorch version of both CUDA kernels equals the
 two Pallas kernels run in interpret mode (align_pallas_v3, align_pallas)
-and the numpy spec (align._forward_pass, the forward pass of ssw_align) on
-all four outputs, in forward and terminate mode.  Integer DP scores: the
+and the JAX package's numpy spec (align._forward_pass, the forward pass
+of ssw_align) on all four outputs, in forward and terminate mode; with
+the port's traceback copies they give ssw_align's alignments.  Integer DP scores: the
 tolerance is exact equality.
 
 The CUDA kernels themselves run only on a card; chip_smoke.py holds them
@@ -17,7 +18,7 @@ import torch
 from ribbit_tpu import align as jax_align
 from ribbit_tpu import align_pallas_v3
 
-from ribbit_tpu_torch import align, align_kernels as ak
+from ribbit_tpu_torch import align, align_kernels as ak, refine_batched
 
 torch.set_num_threads(2)
 
@@ -152,17 +153,16 @@ def test_fits_matches_pallas_v3():
             assert ak.fits(r, c) == align_pallas_v3.fits(r, c), (r, c)
 
 
-def test_align_copy_matches_jax_package(small_pairs):
-    """The port's ssw_align (numpy) and align_strings (C engine) give the
-    JAX package's alignments."""
-    reads, refs = small_pairs
+def test_align_copy_matches_jax_package(small_pairs, oversized_pairs):
+    """The port's traceback copies (align.banded_sw, _mark_mismatch), fed
+    by the plain forward passes as refine_batched._device_align feeds them,
+    give the JAX package's ssw_align alignments."""
     fields = dataclasses.astuple
-    for rd, rf in zip(reads, refs):
-        want = fields(jax_align.ssw_align(rd, rf))
-        assert fields(align.ssw_align(rd, rf)) == want
-        q = "".join("ACGTN"[c] for c in rd)
-        r = "".join("ACGTN"[c] for c in rf)
-        assert fields(align.align_strings(q, r)) == want
+    for reads, refs in (small_pairs, oversized_pairs):
+        pairs = list(zip(reads, refs))
+        got = refine_batched._device_align(pairs, "cpu")
+        for (rd, rf), al in zip(pairs, got):
+            assert fields(al) == fields(jax_align.ssw_align(rd, rf))
 
 
 def test_wrappers_check_inputs_and_count_no_cpu_launches(small_pairs):

@@ -59,6 +59,10 @@ def test_port_never_imports_jax(golden_dir):
     and the host route."""
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     env["PYTHONPATH"] = REPO
+    # torch threads capped as in this process: the plain SSW version runs
+    # thousands of small ops, and a full core count of spinning threads on
+    # a loaded machine makes each of them slow
+    env["OMP_NUM_THREADS"] = "2"
     r = subprocess.run([sys.executable, "-c", _PROBE,
                         str(golden_dir / "g3.fa")], capture_output=True,
                        text=True, env=env, cwd=REPO, timeout=300)

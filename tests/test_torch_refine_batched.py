@@ -81,3 +81,29 @@ def test_batched_refinement_via_cli_env(golden_dir, tmp_path, monkeypatch,
                      "-o", str(out)]) == 0
     assert out.read_text().splitlines() == _golden(golden_dir, name)
     assert calls, "the batched route did not score on the device path"
+
+
+@pytest.mark.parametrize("cap", ["pipeline", "host"])
+def test_over_cap_batched_route_keeps_device(golden_dir, tmp_path,
+                                             monkeypatch, cap):
+    """Contigs past the cap (lowered here to g1's longest contig) go to the
+    host's over-cap paths (pipeline._over_cap; host's auto-chunking and
+    split chunks); with RIBBIT_BATCHED_REFINE their forward passes still
+    run on --device cpu."""
+    from ribbit_tpu_torch import host, pipeline
+    fa = golden_dir / "g1.fa"
+    longest = max(len(seq) for _, seq in read_fasta(str(fa)))
+    monkeypatch.setattr(pipeline if cap == "pipeline" else host,
+                        "MAX_CONTIG", longest)
+    monkeypatch.setenv("RIBBIT_BATCHED_REFINE", "1")
+    calls = []
+    real = ak.ssw_forward_ref
+    monkeypatch.setattr(ak, "ssw_forward_ref",
+                        lambda p: calls.append(p.n) or real(p))
+    out = tmp_path / "out.bed"
+    backend = "gpu" if cap == "pipeline" else "host"
+    assert cli_main(["--backend", backend, "--device", "cpu",
+                     "-i", str(fa), "-o", str(out)]) == 0
+    assert calls, "the over-cap contig was not scored on the device path"
+    if cap == "pipeline":
+        assert out.read_text().splitlines() == _golden(golden_dir, "g1")
