@@ -25,7 +25,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
   6. device-batched refinement end to end: RIBBIT_BATCHED_REFINE=1 through
      the port's CLI on that contig, launch counts, BED against the port's
      host route and default gpu route, and the wall time split into
-     forward kernels, host traceback and the rest.
+     forward kernels, host traceback and the rest;
+  7. the dense-mask kernel against its plain version on the card,
+     bit-equal on all four planes, and its q7, q6 and pm rows against the
+     event words' bits, on phase 3's inputs at both configurations; its
+     time at the segment shape;
+  8. the dense path end to end: scan_events_via_masks segment by segment
+     with exact stitching on the five-contig genome, chr21's streams
+     against the event path's, replay and refinement in the C core, BED
+     against phase 4's byte for byte, launch count and wall time;
+  9. the int32 probe against its plain version, bit-equal, its SASS loop
+     count and counted rate (raises above 105% of the spec int32 rate),
+     then bench_device.run_device_bench() and its JSON line.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or ribbit_tpu.
 """
@@ -43,6 +54,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ribbit_tpu_torch import bench_roofline as br
+from ribbit_tpu_torch.bench_roofline import bound, cuda_ms
+
 CHR21_BP = 46_709_983          # hg38 chr21
 BP_PER_LOCUS = 2660            # bench.py's chromosome recipe
 EDGE_LENGTHS = (1, 7, 8, 101, 102, 103, 4097)
@@ -53,71 +67,18 @@ SSW_REPS = 5
 # (the Python traceback, ~5 ms a pair, rules out chr21 here)
 ROUTE_LOCI, ROUTE_SEED = 400, 38
 CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
-INT32_LANES_PER_SM = 64        # Hopper: int32 results per SM per clock
-# int32 operations per (position, shift row) that the event passes need at
-# least: the byte compare (anchor_planes); the compare, the overlay OR and
-# one operation for each of the two 8-windows (event_words)
-SCAN_OPS = {"anchor_planes": 1, "event_words": 4}
-# int32 issue slots per DP cell that SSW's recurrence needs at least: 7
-# fused Hopper operations (DPX add-min for diag's add and clamp; max3 for
-# h0, H and E; add-max for F's and E's gap steps; one max for the column
-# max), the match score read from a query profile and the argmax taken per
-# column, not per cell; every value is <= 32767, so the s16x2 forms take
-# two cells to a 32-bit slot.  NVIDIA publishes no separate DPX rate: the
-# slots are held against the int32 rate.
-SSW_OPS_PER_CELL = 7 / 2
-SOURCES = ("scan_events", "ssw_forward")
+SOURCES = ("scan_events", "ssw_forward", "alu_probe")
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
-
-
-def int32_ops_per_s() -> float:
-    """The card's int32 rate: SMs x 64 lanes x the maximum SM clock."""
-    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                        "--format=csv,noheader,nounits"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    mhz = float(r.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"    int32 rate: {sms} SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} "
-        f"MHz = {sms * INT32_LANES_PER_SM * mhz * 1e6 / 1e12:.2f} Tops/s")
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
-
-
-def bound(nbytes: float, ops: float, rate: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    int32 operations over the int32 rate."""
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    wide = torch.int64 if a.element_size() >= 4 else torch.int32
+    return int((a.to(wide) - b.to(wide)).abs().max())
 
 
 def write_fasta(path: str, contigs) -> int:
@@ -151,10 +112,9 @@ def phase_build():
         cuda_build.load(stem)
 
 
-def phase_kernels(se, genome_seq: str, cfgs, dev, rate):
-    """Kernel vs plain version, bit-equal; times and bounds at the segment
-    shape."""
-    from ribbit_tpu_torch.encode import encode
+def kernel_cases(genome_seq: str):
+    """(name, sequence): one full segment plus halo of the chromosome,
+    random sequences at the edge lengths (10% N) and an all-N one."""
     from ribbit_tpu_torch.eventstitch import HALO
 
     seg_len = (8 << 20) + 2 * HALO
@@ -166,6 +126,13 @@ def phase_kernels(se, genome_seq: str, cfgs, dev, rate):
         bases[rng.random(L) < 0.1] = ord("N")
         cases.append(("random", bases.tobytes().decode()))
     cases.append(("all-N", "N" * 5000))
+    return cases
+
+
+def phase_kernels(se, cases, cfgs, dev, rate):
+    """Kernel vs plain version, bit-equal; times and bounds at the segment
+    shape."""
+    from ribbit_tpu_torch.encode import encode
 
     err = {"anchor_planes": 0, "event_words": 0}
     times = {}
@@ -191,11 +158,6 @@ def phase_kernels(se, genome_seq: str, cfgs, dev, rate):
                                      f"{name}: {e_a}, {e_w})")
             if name == "segment" and cfg is cfgs[0]:
                 L = len(seq)
-                nbytes = {"anchor_planes": L + a_k.numel() * 4,
-                          "event_words": 2 * L + a_k.numel() * 4
-                          + w_k.numel() * 4}
-                rows = {"anchor_planes": cfg.nshifts,
-                        "event_words": se.nsp_of(cfg)}
                 times["anchor_planes"] = (
                     cuda_ms(lambda: se.anchor_planes(c, cfg), KERNEL_REPS),
                     cuda_ms(lambda: se.anchor_planes_ref(c, cfg),
@@ -206,8 +168,7 @@ def phase_kernels(se, genome_seq: str, cfgs, dev, rate):
                     cuda_ms(lambda: se.flagwords_ref(c, n, a_k, cfg),
                             PLAIN_REPS))
                 for k in times:
-                    times[k] += bound(nbytes[k], rows[k] * L * SCAN_OPS[k],
-                                      rate)
+                    times[k] += bound(*br.scan_work(k, L, cfg), rate)
                 # the rest of one segment's extraction, on the host clock
                 # (second of two runs: the first pays page faults)
                 for _ in range(2):
@@ -319,7 +280,7 @@ def phase_e2e(se, genome, cfg, dev):
             f"C replay {scan_s:.2f} s, "
             f"C refinement {refine_s:.2f} s ({len(seeds)} seeds); "
             f"C generation (capture) {cap_s:.2f} s")
-    return launches, port_s, host_s, mb
+    return launches, port_s, host_s, mb, port_lines
 
 
 def same_bed(got, want, what: str):
@@ -511,7 +472,7 @@ def phase_ssw(seq: str, cfg, dev, rate):
         ms = cuda_ms(lambda: kernel(p), SSW_REPS)
         plain_ms = cuda_ms(lambda: ak.ssw_forward_ref(p), 1)
         bms, by = bound(p.read.numel() + p.ref.numel() + 16 * p.n,
-                        cells * SSW_OPS_PER_CELL, rate)
+                        cells * br.SSW_OPS_PER_CELL, rate)
         stats[name] = dict(max_abs_err=max(e_f, e_r), ms=ms,
                            plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         log(f"  {name} at the round-1 forward batch: {p.n} pairs, {cells} "
@@ -615,25 +576,211 @@ def phase_batched(seq: str, cfg, dev):
     return launches
 
 
+def word_bits_err(planes, words, cfg) -> int:
+    """Positions where the q7, q6 or pm plane of a motif row differs from
+    that row's bit of the event words."""
+    q7, q6, _, pm = planes
+    r0 = cfg.min_motif - cfg.min_shift
+    bad = 0
+    for k in range(cfg.nmotifs):
+        g, bit = divmod(r0 + k, 8)
+        for plane, field in ((q6, 0), (q7, 1), (pm, 2)):
+            b = (words[g] >> (8 * field + bit)) & 1
+            bad += int((plane[k].to(torch.int32) != b).sum())
+    return bad
+
+
+def phase_dense_kernel(se, sm, cases, cfgs, dev, rate):
+    """dense_masks against its plain version and the event words' bits,
+    bit-equal; time and bound at the segment shape."""
+    from ribbit_tpu_torch.encode import encode
+
+    err, stats = 0, None
+    for cfg in cfgs:
+        tag = f"m{cfg.min_motif}-M{cfg.max_motif}"
+        for name, seq in cases:
+            code, n_mask = encode(seq)
+            c = torch.from_numpy(code.view(np.uint8)).to(dev)
+            n = torch.from_numpy(n_mask.view(np.uint8)).to(dev)
+            a = se.anchor_planes(c, cfg)
+            got = sm.masks(c, n, a, cfg)
+            want = sm.masks_ref(c, n, a, cfg)
+            e = max(max_abs_err(g, w) for g, w in zip(got, want))
+            del want
+            e_bits = word_bits_err(got, se.event_words(c, n, a, cfg), cfg)
+            torch.cuda.synchronize()
+            log(f"  {tag} {name} L={len(seq)}: dense_masks err {e}, "
+                f"{e_bits} positions off the event words' bits; "
+                f"{[int(p.sum()) for p in got]} set in (q7, q6, ps, pm)")
+            err = max(err, e)
+            if e or e_bits:
+                raise AssertionError(f"dense_masks != plain version or the "
+                                     f"event words ({tag} {name}: {e}, "
+                                     f"{e_bits})")
+            if name == "segment" and cfg is cfgs[0]:
+                ms = cuda_ms(lambda: sm.masks(c, n, a, cfg), KERNEL_REPS)
+                plain_ms = cuda_ms(lambda: sm.masks_ref(c, n, a, cfg),
+                                   PLAIN_REPS)
+                bms, by = bound(*br.scan_work("dense_masks", len(seq), cfg),
+                                rate)
+                stats = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by)
+            del got, a
+    log(f"  dense_masks at the segment shape: kernel {stats['ms']:.3f} ms, "
+        f"plain {stats['plain_ms']:.3f} ms "
+        f"({stats['plain_ms'] / stats['ms']:.1f}x), bound "
+        f"{stats['bound_ms']:.4f} ms by {stats['bound_by']}")
+    return stats
+
+
+def same_streams(got, want, what: str):
+    """Raise unless two (perfect, q7, q6) stream triples are identical."""
+    for k, sname in enumerate(("perfect", "q7", "q6")):
+        for a, b, part in zip(got[k], want[k], ("starts", "ends",
+                                                 "offsets")):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: {sname} {part} differ")
+    log(f"  {what}: streams identical ({sum(len(g[0]) for g in got)} "
+        "events)")
+
+
+def phase_dense_path(sm, genome, cfg, dev, want_bed):
+    """The dense path end to end: every contig's events from the dense
+    planes (scan_events_via_masks, segment by segment, stitched), replayed
+    and refined by the C core; chr21's streams against the event path's,
+    the BED against phase 4's."""
+    from functools import partial
+
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.encode import encode
+    from ribbit_tpu_torch.eventstitch import scan_events_segmented
+    from ribbit_tpu_torch.pipeline import SEG_SIZE, extract_events
+
+    lines, spent = [], {"segments": 0.0, "stitching": 0.0, "replay": 0.0,
+                        "refinement": 0.0}
+    extractor = partial(sm.scan_events_via_masks, device=dev)
+
+    def timed_extractor(*a):
+        t0 = time.perf_counter()
+        try:
+            return extractor(*a)
+        finally:
+            spent["segments"] += time.perf_counter() - t0
+
+    checked = 0.0
+    sm.masks.launches = 0
+    t_all = time.perf_counter()
+    for name, seq in genome:
+        code, n_mask = encode(seq)
+        t = time.perf_counter()
+        seg0 = spent["segments"]
+        got = scan_events_segmented(code, n_mask, cfg,
+                                    extractor=timed_extractor,
+                                    seg_size=SEG_SIZE)
+        spent["stitching"] += (time.perf_counter() - t
+                               - (spent["segments"] - seg0))
+        if name == "chr21":
+            t = time.perf_counter()
+            same_streams(got, extract_events(code, n_mask, cfg, dev),
+                         "chr21, dense path against the event path")
+            checked = time.perf_counter() - t
+        sess = CoreSession(code, n_mask, cfg, nthreads=os.cpu_count() or 1)
+        try:
+            t = time.perf_counter()
+            sess.set_events(*got)
+            seeds = sess.scan()
+            spent["replay"] += time.perf_counter() - t
+            t = time.perf_counter()
+            lines += sess.refine(seeds, seq, name)
+            spent["refinement"] += time.perf_counter() - t
+        finally:
+            sess.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all - checked
+    launches = sm.masks.launches
+    log(f"  launches in the dense run: dense_masks {launches}")
+    if launches <= 0:
+        raise AssertionError("dense_masks was not launched")
+    same_bed(lines, want_bed, "phase 4's --backend gpu BED")
+    log(f"  dense path {wall:.2f} s (without the stream check): segments "
+        f"(H2D, kernels, device epilogue, events D2H) "
+        f"{spent['segments']:.2f} s, stitching {spent['stitching']:.2f} s, "
+        f"C replay {spent['replay']:.2f} s, C refinement "
+        f"{spent['refinement']:.2f} s")
+    return launches
+
+
+def phase_probe_bench(dev, rate):
+    """alu_probe against its plain version, bit-equal, its SASS count and
+    rate; then the port's bench, whose launches are counted."""
+    from ribbit_tpu_torch import align_kernels as ak
+    from ribbit_tpu_torch import bench_device as bd
+    from ribbit_tpu_torch import scan_events as se
+    from ribbit_tpu_torch import scan_masks as sm
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(-2**31, 2**31 - 1, (br.ROWS * br.WIDTH,), generator=g,
+                      dtype=torch.int32, device=dev)
+    k = br.alu_probe(x, br.OPS, br.TRIPS)
+    plain_ms = cuda_ms(lambda: br.alu_probe_ref(x, br.OPS, br.TRIPS), 1)
+    err = max_abs_err(k, br.alu_probe_ref(x, br.OPS, br.TRIPS))
+    log(f"  alu_probe at OPS {br.OPS} x TRIPS {br.TRIPS} on "
+        f"({br.ROWS}, {br.WIDTH}): err {err}")
+    if err:
+        raise AssertionError("alu_probe != plain version")
+    probe = br.probe_ceiling(dev)
+    log(f"  SASS loop body ({probe['loop_rounds']} rounds, "
+        f"{probe['loop_rounds'] * br.CHAINS} source operations): "
+        f"{probe['sass_loop_instructions']} integer instructions "
+        f"{probe['sass_loop_opcodes']}")
+    log(f"  alu_probe {probe['ms']:.4f} ms: {probe['int32_tops']:.3f} Tops/s "
+        f"= {probe['spec_frac']:.1%} of the spec {probe['spec_tops']:.3f} "
+        f"(limit {br.PROBE_LIMIT:.0%}: passed)")
+    bms, by = bound(*br.probe_work(x.numel()), rate)
+
+    for fn in (br.alu_probe, sm.masks, se.anchor_planes, se.event_words,
+               ak.ssw_forward_small):
+        fn.launches = 0
+    t = time.perf_counter()
+    res = bd.run_device_bench(dev)
+    wall = time.perf_counter() - t
+    launches = br.alu_probe.launches
+    log(f"  bench_device in {wall:.1f} s; launches: alu_probe {launches}, "
+        f"dense_masks {sm.masks.launches}, ssw_forward_small "
+        f"{ak.ssw_forward_small.launches}")
+    missing = [key for key, v in res.items() if v is None]
+    if missing or launches <= 0:
+        raise AssertionError(f"bench_device: no value for {missing}, "
+                             f"{launches} probe launches")
+    log(json.dumps(res))
+    return launches, dict(max_abs_err=err, ms=probe["ms"],
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     import ribbit_tpu_torch.scan_events as se
+    import ribbit_tpu_torch.scan_masks as sm
     from ribbit_tpu_torch import cuda_build
     from ribbit_tpu_torch.config import RibbitConfig
     from ribbit_tpu_torch.sim import simulate
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    card = nvidia_smi()
+    card = br.card_name()
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, timeout=60)
     log(f"[1] card: {card}")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc "
         f"{nvcc.stdout.strip().splitlines()[-1]}, python "
         f"{sys.version.split()[0]}")
-    rate = int32_ops_per_s()
+    rate = br.spec_int32_rate(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"    int32 peak: {sms} SMs x {br.ISSUE_LANES_PER_SM} issue lanes x "
+        f"the maximum SM clock = {rate / 1e12:.2f} Tops/s")
 
     t = time.perf_counter()
     log("[2] build")
@@ -655,15 +802,16 @@ def main() -> int:
                                                        max_motif=37))
     log("[3] event kernels against their plain versions on the card "
         "(bit-equal)")
-    err, times = phase_kernels(se, chrom, cfgs, dev, rate)
+    cases = kernel_cases(chrom)
+    err, times = phase_kernels(se, cases, cfgs, dev, rate)
 
     log("[4] event extraction end to end through the port's CLI, "
         "--backend gpu")
-    launches, port_s, host_s, mb = phase_e2e(se, genome, cfgs[0], dev)
+    launches, port_s, host_s, mb, gpu_bed = phase_e2e(se, genome, cfgs[0],
+                                                      dev)
     log(f"  e2e on {card}: port {port_s:.2f} s ({mb / port_s:.2f} Mbp/s), "
         f"host route {host_s:.2f} s ({mb / host_s:.2f} Mbp/s), "
         f"{os.cpu_count()} host cores")
-    del chrom, genome
 
     log("[5] SSW kernels against their plain version on the card "
         "(bit-equal)")
@@ -672,6 +820,21 @@ def main() -> int:
     log(f"[6] device-batched refinement end to end ({len(route)} bp, "
         "RIBBIT_BATCHED_REFINE=1)")
     launches.update(phase_batched(route, cfgs[0], dev))
+
+    log("[7] dense-mask kernel against its plain version and the event "
+        "words on the card (bit-equal)")
+    dense = phase_dense_kernel(se, sm, cases, cfgs, dev, rate)
+    del cases
+
+    log("[8] the dense path end to end (scan_events_via_masks, stitched, "
+        "C replay and refinement)")
+    launches["dense_masks"] = phase_dense_path(sm, genome, cfgs[0], dev,
+                                               gpu_bed)
+    del chrom, genome, gpu_bed
+
+    log("[9] the int32 probe against its plain version, its SASS count, "
+        "and the port's bench")
+    launches["alu_probe"], probe = phase_probe_bench(dev, rate)
 
     src = "ribbit_tpu_torch/csrc/scan_events.cu"
     replaces = {"anchor_planes": "ribbit_tpu/scan_events_pallas.py:95",
@@ -689,6 +852,17 @@ def main() -> int:
                  "replaces": replaces[k], "launches": launches[k],
                  **ssw[k], "library_ms": None}
                 for k in replaces]
+    kernels.append({"name": "dense_masks", "route": "cuda", "source": src,
+                    "replaces": "ribbit_tpu/scan_pallas_v4.py:70 and "
+                                "ribbit_tpu/scan_pallas_full.py:78",
+                    "launches": launches["dense_masks"], **dense,
+                    "library_ms": None})
+    kernels.append({"name": "alu_probe", "route": "cuda",
+                    "source": "ribbit_tpu_torch/csrc/alu_probe.cu",
+                    "replaces": "ribbit_tpu/bench_roofline.py:52",
+                    "launches": launches["alu_probe"], **probe,
+                    "library_ms": None})
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -26,14 +26,26 @@
 //   csrc/ribbit_events.c): bits 0-7 q6, 8-15 q7, 16-23 pm, one int32 per
 //   position per plane, [ngroups, L].
 //
+// dense_masks_kernel (replaces _kernel, scan_pallas_v4.py:70, and
+//   _gen_kernel_body, scan_pallas_full.py:78, which compute the same planes)
+//   For motif rows k (shift row r = r0 + k, shift = motif m = min_shift + r)
+//   four int8 planes [nm, L]: q7 and q6 as above, pm = eq & ~N, and
+//     ps[p] = pm[p] & ~pm[p-1] & (the pm run from p is >= cutoff),
+//   cutoff = 12 - m if m <= 6 else m, pm[-1] = 0.  The run length is exact
+//   (the Pallas kernels saturate it at 128 and 256; every cutoff up to 128
+//   gives the same planes).  Output: [4][nm][L], planes q7, q6, ps, pm.
+//
 // What bounds them on this card: the event pass writes 52 B/bp (13 planes
 // x 4 B) and that plane then crosses PCIe to the host, so the output bytes
 // bound the pass; compute is about ns x (an 8-bit window popcount twice,
-// four neighbour ORs) integer ops per bp.  The design keeps every
+// four neighbour ORs) integer ops per bp.  The dense pass writes 4 B per
+// motif row per bp (396 B/bp at the default config) against 14.75 B/bp
+// read, so it too is bound by its output bytes.  The design keeps every
 // per-position quantity as a bit in a 32-bit word: eq is built once per
 // block into shared memory as bit-words, run searches use __clz / __ffs
 // over whole words, and an 8-position window is one __funnelshift_r plus
-// __popc.  Each output word is written once, coalesced.
+// __popc.  Each output word is written once, coalesced; the dense pass
+// writes four positions of a plane per 32-bit store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -227,6 +239,137 @@ __global__ void event_words_kernel(const uint8_t *__restrict__ code,
     }
 }
 
+#define MROWS 8        // motif rows per block in the dense pass
+
+// Length of the pm run from bit b of word wl is at least cutoff; pm words
+// are eq & ~N, walked past the word with __ffs as the anchor pass does.
+__device__ __forceinline__ bool run_at_least(const u32 *e, const u32 *nw,
+                                             int wl, int b, int cutoff,
+                                             int EW)
+{
+    u32 inv = ~((e[wl] & ~nw[wl]) >> b);   // ones above bit 31 - b
+    int len = inv ? __ffs(inv) - 1 : 32;
+    if (len < 32 - b)
+        return len >= cutoff;
+    for (int k = wl + 1; k < EW && len < cutoff; k++) {
+        u32 nx = ~(e[k] & ~nw[k]);
+        int c = nx ? __ffs(nx) - 1 : 32;
+        len += c;
+        if (c < 32)
+            break;
+    }
+    return len >= cutoff;
+}
+
+// Grid: (tiles of TW words, groups of MROWS motif rows).  Shared memory:
+// the code tile over words [w0 - 1, w0 + TW + H) plus s_max bytes, the
+// n_mask tile, the N bit-words (positions < 0 or >= L set), and eq and
+// overlay bit-words of the group's rows over the same words.  The left word
+// gives pm[p - 1] at the tile's first position; the H right words serve
+// windows that start in the tile's last word and the run walk up to the
+// largest cutoff.  A thread takes four positions of one row.
+__global__ void dense_masks_kernel(const uint8_t *__restrict__ code,
+                                   const uint8_t *__restrict__ nmask,
+                                   const u32 *__restrict__ anch, int L,
+                                   int min_shift, int ns, int r0, int nm,
+                                   int H, int W, int8_t *__restrict__ out)
+{
+    extern __shared__ unsigned char smem[];
+    const int EW = 1 + TW + H;
+    const int s_max = min_shift + r0 + nm - 1;
+    const int ncode = EW * 32 + s_max;
+    uint8_t *sc = smem;
+    uint8_t *sn = smem + ((ncode + 15) & ~15);
+    u32 *nw = (u32 *)(sn + EW * 32);
+    u32 *eqw = nw + EW;
+    u32 *ovw = eqw + MROWS * EW;
+
+    const int w0 = blockIdx.x * TW;
+    const int k0 = blockIdx.y * MROWS;
+    const int pbase = (w0 - 1) * 32;           // global position of sc[0]
+
+    for (int i = threadIdx.x; i < ncode; i += THREADS) {
+        int p = pbase + i;
+        bool in = p >= 0 && p < L;
+        sc[i] = in ? code[p] : 0;
+        if (i < EW * 32)
+            sn[i] = in ? nmask[p] : 1;
+    }
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < EW; i += THREADS) {
+        u32 w = 0;
+        for (int j = 0; j < 32; j++)
+            w |= (u32)(sn[i * 32 + j] != 0) << j;
+        nw[i] = w;
+    }
+    for (int i = threadIdx.x; i < MROWS * EW; i += THREADS) {
+        int r = i % MROWS, wl = i / MROWS;
+        int k = k0 + r, gw = w0 - 1 + wl;
+        u32 eq = 0, ov = 0;
+        if (k < nm) {
+            int row = r0 + k;
+            eq = eq_word(sc, wl * 32, pbase + wl * 32, min_shift + row, L);
+            if (gw >= 0 && gw < W) {
+                for (int d = -2; d <= 2; d++) {
+                    int nr = row + d;
+                    if (d != 0 && nr >= 0 && nr < ns)
+                        ov |= anch[(size_t)nr * W + gw];
+                }
+            }
+        }
+        eqw[r * EW + wl] = eq;
+        ovw[r * EW + wl] = eq | ov;
+    }
+    __syncthreads();
+
+    const int QT = TW * 8;                     // quads of positions per row
+    for (int i = threadIdx.x; i < MROWS * QT; i += THREADS) {
+        int r = i / QT, q = i % QT;
+        int k = k0 + r;
+        int p = w0 * 32 + 4 * q;
+        if (k >= nm)
+            break;
+        if (p >= L)
+            continue;
+        int wl = 1 + (q >> 3), sh = (q & 7) * 4;
+        int m = min_shift + r0 + k;
+        int cutoff = m <= 6 ? 12 - m : m;
+        const u32 *e = eqw + r * EW, *o = ovw + r * EW;
+        u32 n8 = __funnelshift_r(nw[wl], nw[wl + 1], sh);
+        u32 e8 = __funnelshift_r(e[wl], e[wl + 1], sh);
+        u32 o8 = __funnelshift_r(o[wl], o[wl + 1], sh);
+        u32 pmb = e8 & ~n8;
+        u32 prev = sh ? (e[wl] & ~nw[wl]) >> (sh - 1)
+                      : (e[wl - 1] & ~nw[wl - 1]) >> 31;
+        u32 v7 = 0, v6 = 0, vs = 0, vm = 0;
+#pragma unroll
+        for (int j = 0; j < 4; j++) {
+            bool nfree = ((n8 >> j) & 0xffu) == 0;
+            u32 b7 = nfree && __popc((e8 >> j) & 0xffu) >= 7;
+            u32 b6 = nfree && __popc((o8 >> j) & 0xffu) >= 6;
+            u32 bm = (pmb >> j) & 1u;
+            u32 bp = (j ? pmb >> (j - 1) : prev) & 1u;
+            u32 bs = bm && !bp
+                     && run_at_least(e, nw, wl, sh + j, cutoff, EW);
+            v7 |= b7 << (8 * j);
+            v6 |= b6 << (8 * j);
+            vs |= bs << (8 * j);
+            vm |= bm << (8 * j);
+        }
+        const u32 v[4] = {v7, v6, vs, vm};
+        for (int pl = 0; pl < 4; pl++) {
+            int8_t *dst = out + ((size_t)pl * nm + k) * L + p;
+            if ((((size_t)dst) & 3) == 0 && p + 3 < L) {
+                *(u32 *)dst = v[pl];
+            } else {
+                for (int j = 0; j < 4 && p + j < L; j++)
+                    dst[j] = (int8_t)((v[pl] >> (8 * j)) & 1u);
+            }
+        }
+    }
+}
+
 static int launch_smem(const void *fn, size_t smem)
 {
     if (smem > 48 * 1024)
@@ -278,5 +421,36 @@ extern "C" int ribbit_event_words(const uint8_t *code, const uint8_t *nmask,
     dim3 grid((L + TW * 32 - 1) / (TW * 32), ngroups);
     event_words_kernel<<<grid, THREADS, smem, stream>>>(
         code, nmask, anch, L, min_shift, ns, W, out);
+    return (int)cudaGetLastError();
+}
+
+// Motif rows k = 0..nm-1 are shift rows r0 + k.  out: int8 [4, nm, L].
+extern "C" int ribbit_dense_masks(const uint8_t *code, const uint8_t *nmask,
+                                  const u32 *anch, int L, int min_shift,
+                                  int ns, int r0, int nm, int8_t *out,
+                                  int device, cudaStream_t stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess)
+        return (int)err;
+    int cut_max = 0;
+    for (int k = 0; k < nm; k++) {
+        int m = min_shift + r0 + k;
+        int c = m <= 6 ? 12 - m : m;
+        cut_max = c > cut_max ? c : cut_max;
+    }
+    const int H = (cut_max + 31) / 32 + 1;
+    const int s_max = min_shift + r0 + nm - 1;
+    const int W = (L + 31) / 32;
+    const int EW = 1 + TW + H;
+    const size_t smem = (size_t)((EW * 32 + s_max + 15) & ~15)
+                        + (size_t)EW * 32
+                        + (size_t)(1 + 2 * MROWS) * EW * sizeof(u32);
+    int rc = launch_smem((const void *)dense_masks_kernel, smem);
+    if (rc)
+        return rc;
+    dim3 grid((L + TW * 32 - 1) / (TW * 32), (nm + MROWS - 1) / MROWS);
+    dense_masks_kernel<<<grid, THREADS, smem, stream>>>(
+        code, nmask, anch, L, min_shift, ns, r0, nm, H, W, out);
     return (int)cudaGetLastError();
 }

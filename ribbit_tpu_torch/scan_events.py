@@ -183,6 +183,8 @@ def _lib() -> ctypes.CDLL:
     lib.ribbit_anchor_planes.argtypes = [P, I, I, I, P, I, I, P]
     lib.ribbit_event_words.restype = I
     lib.ribbit_event_words.argtypes = [P, P, P, I, I, I, I, P, I, P]
+    lib.ribbit_dense_masks.restype = I
+    lib.ribbit_dense_masks.argtypes = [P, P, P, I, I, I, I, I, P, I, P]
     return lib
 
 
@@ -371,19 +373,24 @@ def _decode_c(w: np.ndarray, cfg: RibbitConfig):
     return streams[2], streams[1], streams[0]
 
 
+def device_inputs(code: np.ndarray, n_mask: np.ndarray, device):
+    """uint8 code and n_mask tensors on `device` from encode's host
+    arrays; raises if CUDA is asked for and absent."""
+    if np.dtype(code.dtype).itemsize != 1 or np.dtype(
+            n_mask.dtype).itemsize != 1:
+        raise ValueError(f"want 1-byte code and n_mask (as encode gives), "
+                         f"got {code.dtype}, {n_mask.dtype}")
+    require_cuda(device)
+    dev = torch.device(device)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.uint8))
+                 .to(dev) for a in (code, n_mask))
+
+
 def flagwords(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig,
               device="cuda") -> np.ndarray:
     """Event bitmap words of one sequence as int32 [ceil(nsp/8), L] on the
     host: both passes on `device`, then one device-to-host copy."""
-    if np.dtype(code.dtype).itemsize != 1 or np.dtype(
-            n_mask.dtype).itemsize != 1:
-        raise ValueError(f"flagwords: want 1-byte code and n_mask (as "
-                         f"encode gives), got {code.dtype}, "
-                         f"{n_mask.dtype}")
-    require_cuda(device)
-    dev = torch.device(device)
-    c = torch.from_numpy(np.ascontiguousarray(code).view(np.uint8)).to(dev)
-    n = torch.from_numpy(np.ascontiguousarray(n_mask).view(np.uint8)).to(dev)
+    c, n = device_inputs(code, n_mask, device)
     return event_words(c, n, anchor_planes(c, cfg), cfg).cpu().numpy()
 
 
