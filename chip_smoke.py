@@ -36,7 +36,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
      against phase 4's byte for byte, launch count and wall time;
   9. the int32 probe against its plain version, bit-equal, its SASS loop
      count and counted rate (raises above 105% of the spec int32 rate),
-     then bench_device.run_device_bench() and its JSON line.
+     then bench_device.run_device_bench() and its JSON line;
+ 10. the eq_sum8 kernel against its plain version on the card, bit-equal
+     on both outputs, on phase 3's inputs at both configurations and on
+     the edge lengths at -M 300 (past the Pallas kernel's row cap); its
+     time at the segment shape;
+ 11. the Python engine end to end on phase 5's contig: the dense scan
+     (scan_dense.scan_arrays) on the card against the numpy spec
+     (scan_host), all five arrays; process_sequence(engine="python")
+     against the port's host route (the C core), BED byte for byte;
+     launch counts and the wall time split into the device scan, the
+     scanners and lattices, and refinement.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or ribbit_tpu.
 """
@@ -67,7 +77,8 @@ SSW_REPS = 5
 # (the Python traceback, ~5 ms a pair, rules out chr21 here)
 ROUTE_LOCI, ROUTE_SEED = 400, 38
 CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
-SOURCES = ("scan_events", "ssw_forward", "alu_probe")
+SOURCES = ("scan_events", "ssw_forward", "alu_probe", "scan_dense")
+BIG_M = 300                    # -M past the Pallas eq/sum8 kernel's cap
 
 
 def log(*a):
@@ -757,11 +768,119 @@ def phase_probe_bench(dev, rate):
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
+def phase_eq_sum8(sd, cases, cfgs, dev, rate):
+    """eq_sum8 against its plain version, bit-equal on both outputs; time
+    and bound at the segment shape."""
+    from ribbit_tpu_torch.config import RibbitConfig
+    from ribbit_tpu_torch.encode import encode
+
+    big = RibbitConfig.create(max_motif=BIG_M)
+    runs = [(cfg, case) for cfg in cfgs for case in cases]
+    runs += [(big, case) for case in cases if case[0] != "segment"]
+    err, stats = 0, None
+    for cfg, (name, seq) in runs:
+        tag = f"m{cfg.min_motif}-M{cfg.max_motif}"
+        c = torch.from_numpy(encode(seq)[0].view(np.uint8)).to(dev)
+        got = sd.eq_sum8(c, cfg)
+        want = sd.eq_sum8_ref(c, cfg)
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        torch.cuda.synchronize()
+        log(f"  {tag} {name} L={len(seq)}: eq_sum8 err {e}; "
+            f"{int(got[0].sum())} matches")
+        err = max(err, e)
+        if e:
+            raise AssertionError(f"eq_sum8 != plain version ({tag} {name}: "
+                                 f"{e})")
+        del got, want
+        if name == "segment" and cfg is cfgs[0]:
+            ms = cuda_ms(lambda: sd.eq_sum8(c, cfg), KERNEL_REPS)
+            plain_ms = cuda_ms(lambda: sd.eq_sum8_ref(c, cfg), PLAIN_REPS)
+            bms, by = bound(*br.scan_work("eq_sum8", len(seq), cfg), rate)
+            stats = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by)
+    stats["max_abs_err"] = err
+    log(f"  eq_sum8 at the segment shape: kernel {stats['ms']:.3f} ms, "
+        f"plain {stats['plain_ms']:.3f} ms "
+        f"({stats['plain_ms'] / stats['ms']:.1f}x), bound "
+        f"{stats['bound_ms']:.4f} ms by {stats['bound_by']}")
+    return stats
+
+
+def phase_python_engine(sd, se, seq: str, cfg, dev):
+    """The dense scan on the card against the numpy spec, then the Python
+    engine end to end against the C core; launches and the time split."""
+    from ribbit_tpu_torch import host
+    from ribbit_tpu_torch import pipeline as pl
+    from ribbit_tpu_torch.encode import encode
+
+    code, n_mask = encode(seq)
+    t = time.perf_counter()
+    got = sd.scan_arrays(code, n_mask, cfg, device=dev)
+    scan_s = time.perf_counter() - t
+    t = time.perf_counter()
+    spec = host.scan_host_arrays(code, n_mask, cfg)
+    spec_s = time.perf_counter() - t
+    for name, g, w in zip(("eq", "anchors", "overlay", "qual7", "qual6"),
+                          got, spec):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"scan_arrays' {name} differs from the "
+                                 "numpy spec")
+    log(f"  scan_arrays on the card equals the numpy spec on all five "
+        f"arrays ({sum(g.nbytes for g in got) / 1e6:.1f} MB; card "
+        f"{scan_s:.2f} s with the copies to the host, numpy "
+        f"{spec_s:.2f} s)")
+    del got, spec
+
+    spent = {"device scan": 0.0, "scanners and lattices": 0.0,
+             "refinement": 0.0}
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapped
+
+    saved = (sd.scan_arrays, host.python_seeds, host._refine_seeds)
+    sd.scan_arrays = timed("device scan", saved[0])
+    host.python_seeds = timed("scanners and lattices", saved[1])
+    host._refine_seeds = timed("refinement", saved[2])
+    sd.eq_sum8.launches = 0
+    se.anchor_planes.launches = 0
+    try:
+        t = time.perf_counter()
+        lines = pl.process_sequence("route", seq, cfg, device=dev,
+                                    engine="python")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        sd.scan_arrays, host.python_seeds, host._refine_seeds = saved
+    launches = {"eq_sum8": sd.eq_sum8.launches,
+                "anchor_planes": se.anchor_planes.launches}
+    log(f"  launches in the engine's run: {launches}")
+    if launches != {"eq_sum8": 1, "anchor_planes": 1}:
+        raise AssertionError(f"want one launch of each kernel for the "
+                             f"contig, got {launches}")
+    t = time.perf_counter()
+    want = host.process_sequence("route", seq, cfg)
+    core_s = time.perf_counter() - t
+    same_bed(lines, want, "the port's host route (the C core)")
+    rest = wall - sum(spent.values())
+    log(f"  Python engine {wall:.2f} s on {len(seq)} bp "
+        f"({len(seq) / wall / 1e3:.1f} kbp/s): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
+        + f", the rest {rest:.2f} s; the C core {core_s:.2f} s")
+    return launches["eq_sum8"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    import ribbit_tpu_torch.scan_dense as sd
     import ribbit_tpu_torch.scan_events as se
     import ribbit_tpu_torch.scan_masks as sm
     from ribbit_tpu_torch import cuda_build
@@ -824,7 +943,6 @@ def main() -> int:
     log("[7] dense-mask kernel against its plain version and the event "
         "words on the card (bit-equal)")
     dense = phase_dense_kernel(se, sm, cases, cfgs, dev, rate)
-    del cases
 
     log("[8] the dense path end to end (scan_events_via_masks, stitched, "
         "C replay and refinement)")
@@ -836,6 +954,15 @@ def main() -> int:
         "and the port's bench")
     launches["alu_probe"], probe = phase_probe_bench(dev, rate)
 
+    log("[10] the eq_sum8 kernel against its plain version on the card "
+        "(bit-equal)")
+    eq_sum8 = phase_eq_sum8(sd, cases, cfgs, dev, rate)
+    del cases
+
+    log(f"[11] the Python engine end to end ({len(route)} bp, dense scan "
+        "on the card)")
+    launches["eq_sum8"] = phase_python_engine(sd, se, route, cfgs[0], dev)
+
     src = "ribbit_tpu_torch/csrc/scan_events.cu"
     replaces = {"anchor_planes": "ribbit_tpu/scan_events_pallas.py:95",
                 "event_words": "ribbit_tpu/scan_events_pallas.py:187"}
@@ -845,7 +972,11 @@ def main() -> int:
                 "plain_ms": times[k][1], "bound_ms": times[k][2],
                 "bound_by": times[k][3], "library_ms": None}
                for k in replaces]
-    replaces = {"ssw_forward_small": "ribbit_tpu/align_pallas_v3.py:35",
+    # one Hopper kernel serves each Pallas lineage: K9 computes K3's
+    # function, K6-K8 K5's planes (tests/test_torch_align.py and
+    # tests/test_torch_scan_masks.py hold them in interpret mode)
+    replaces = {"ssw_forward_small": "ribbit_tpu/align_pallas_v3.py:35 and "
+                                     "ribbit_tpu/align_pallas_v2.py:49",
                 "ssw_forward_large": "ribbit_tpu/align_pallas.py:59"}
     kernels += [{"name": k, "route": "cuda",
                  "source": "ribbit_tpu_torch/csrc/ssw_forward.cu",
@@ -853,14 +984,21 @@ def main() -> int:
                  **ssw[k], "library_ms": None}
                 for k in replaces]
     kernels.append({"name": "dense_masks", "route": "cuda", "source": src,
-                    "replaces": "ribbit_tpu/scan_pallas_v4.py:70 and "
-                                "ribbit_tpu/scan_pallas_full.py:78",
+                    "replaces": "ribbit_tpu/scan_pallas_v4.py:70, "
+                                "ribbit_tpu/scan_pallas_full.py:78, "
+                                "ribbit_tpu/scan_pallas_v3.py:42 and "
+                                "ribbit_tpu/scan_pallas_v2.py:101",
                     "launches": launches["dense_masks"], **dense,
                     "library_ms": None})
     kernels.append({"name": "alu_probe", "route": "cuda",
                     "source": "ribbit_tpu_torch/csrc/alu_probe.cu",
                     "replaces": "ribbit_tpu/bench_roofline.py:52",
                     "launches": launches["alu_probe"], **probe,
+                    "library_ms": None})
+    kernels.append({"name": "eq_sum8", "route": "cuda",
+                    "source": "ribbit_tpu_torch/csrc/scan_dense.cu",
+                    "replaces": "ribbit_tpu/scan_pallas.py:44",
+                    "launches": launches["eq_sum8"], **eq_sum8,
                     "library_ms": None})
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -6,21 +6,27 @@ lanes on saturation) -> reverse pass to locate the alignment begin ->
 banded affine-gap DP with doubling band width for the traceback ->
 ConvertAlignment (soft clips) -> CalculateNumberMismatch ('M' -> '='/'X').
 
-The forward passes' semantics (H clamped at 32767; end_ref the first
-column with a strictly larger max, end_read the smallest row reaching it,
-ssw.c:321-351) are align_kernels'.  banded_sw here ports the traceback's
-direction-preference and band-boundary quirks one-for-one (ssw.c:590-774).
+This module reproduces the same outputs with numpy:
+
+  * forward/reverse passes are plain affine-gap local DP; byte-mode saturation
+    is observable only via the escalate-at->=253 rule, and word mode saturates
+    at 32767 — both reproduced by clamping H at 32767 (ssw.c:327-329, 844-854)
+  * tie-breaking: end_ref = first column achieving a strictly larger max
+    (ssw.c:321-334); end_read = smallest read index reaching the max within
+    that column (ssw.c:342-351)
+  * banded_sw ports the direction-preference and band-boundary quirks
+    one-for-one (ssw.c:590-774)
 
 Scoring is the reference default: match 2, mismatch -2, gapO 3, gapE 1,
 N scores -2 against everything (ssw_cpp.cpp:27-52, 230-242).
 
-The port's copy of the part of ribbit_tpu/align.py (which it may not
-import) that device-batched refinement runs: Alignment, the translation
-table, banded_sw (the traceback) and _mark_mismatch.  The forward and
-reverse passes are align_kernels' (CUDA kernels ssw_forward_small /
-ssw_forward_large and their plain version); the numpy forward pass,
-ssw_align and the C engine's align_strings are not copied, since nothing
-in the port calls them.
+The port's copy of ribbit_tpu/align.py, which it may not import.  The
+Python engine aligns with align_strings, which runs the C engine
+(csrc/ribbit_align.c, built by native.py, which raises if it does not
+build); ssw_align is the numpy spec, and it serves the C engine's
+capacity overflow.  Device-batched refinement scores its forward and
+reverse passes with align_kernels (CUDA kernels ssw_forward_small /
+ssw_forward_large) and traces back with banded_sw and _mark_mismatch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 
 GAP_O = 3
 GAP_E = 1
+WORD_MAX = 32767
 
 # 5x5 score matrix incl. N (ssw_cpp.cpp:27-52)
 SCORE_MAT = np.full((5, 5), -2, dtype=np.int32)
@@ -59,6 +66,108 @@ class Alignment:
     query_end: int = 0
     cigar_string: str = ""
     mismatches: int = 0
+
+
+def _forward_pass(read: np.ndarray, ref: np.ndarray,
+                  terminate: int = -1, record_best_col: bool = True):
+    """One SW scan over ref columns.  Returns (max, end_ref, best_col_H,
+    max_columns).  H is clamped at WORD_MAX, reproducing word-mode saturation;
+    when max < 253 this equals the byte-mode exact result (see module doc).
+
+    terminate >= 0 reproduces the reverse pass's early stop: break after the
+    first column whose column-max equals `terminate` (ssw.c:339)."""
+    R = read.shape[0]
+    score_rows = SCORE_MAT[:, read]          # [5, R] per-ref-base score rows
+
+    H = np.zeros(R, dtype=np.int32)
+    E = np.zeros(R, dtype=np.int32)
+    best = 0
+    end_ref = -1
+    best_col = H.copy()
+    max_columns = np.zeros(ref.shape[0], dtype=np.int32)
+
+    idx = np.arange(R, dtype=np.int32)
+    for i in range(ref.shape[0]):
+        diag = np.empty(R, dtype=np.int32)
+        diag[0] = 0
+        diag[1:] = H[:-1]
+        diag += score_rows[ref[i]]
+        np.minimum(diag, WORD_MAX, out=diag)
+
+        h0 = np.maximum(diag, E)
+        np.maximum(h0, 0, out=h0)
+        # F via prefix-max: F[j] = max_{k<j} (h0[k] - GAP_O - (j-1-k)*GAP_E)
+        # (opening from a gap-derived H never wins with GAP_O >= GAP_E)
+        A = h0 + idx * GAP_E
+        P = np.maximum.accumulate(A)
+        F = np.empty(R, dtype=np.int32)
+        F[0] = 0
+        F[1:] = P[:-1] - GAP_O - (idx[1:] - 1) * GAP_E
+        np.maximum(F, 0, out=F)
+        Hn = np.maximum(h0, F)
+
+        E = np.maximum(E - GAP_E, Hn - GAP_O)
+        np.maximum(E, 0, out=E)
+        H = Hn
+
+        colmax = int(H.max()) if R else 0
+        max_columns[i] = colmax
+        if colmax > best:
+            best = colmax
+            end_ref = i
+            if record_best_col:
+                best_col = H.copy()
+        if terminate >= 0 and colmax == terminate:
+            break
+
+    return best, end_ref, best_col, max_columns
+
+
+def ssw_align(read: np.ndarray, ref: np.ndarray) -> Alignment | None:
+    """ssw_align with flag=0x0f (always report begin + cigar), maskLen=15.
+
+    read/ref: int8 arrays of translated codes (0..4)."""
+    al = Alignment()
+    R = read.shape[0]
+    if R == 0 or ref.shape[0] == 0:
+        return None
+
+    score1, end_ref, best_col, _ = _forward_pass(read, ref)
+    if end_ref < 0:
+        # no positive-scoring cell; reference would emit cigarLen==0
+        al.sw_score = 0
+        al.ref_end = -1
+        al.query_end = R - 1
+        return al
+
+    # end_read: smallest read index achieving the max in the best column
+    end_read = int(np.flatnonzero(best_col == score1)[0])
+
+    al.sw_score = score1
+    al.ref_end = end_ref
+    al.query_end = end_read
+
+    # reverse pass over reversed prefixes with early termination at score1
+    read_rev = read[:end_read + 1][::-1].copy()
+    ref_rev = ref[:end_ref + 1][::-1].copy()
+    _, end_ref_rev, best_col_rev, _ = _forward_pass(read_rev, ref_rev,
+                                                    terminate=score1)
+    # scanning order i=end_ref..0 maps to reversed index t = end_ref - i
+    al.ref_begin = end_ref - end_ref_rev
+    rev_read_idx = int(np.flatnonzero(best_col_rev == score1)[0])
+    al.query_begin = end_read - rev_read_idx
+
+    # banded traceback on the located subsequences (ssw.c:898-902)
+    sub_ref = ref[al.ref_begin:al.ref_end + 1]
+    sub_read = read[al.query_begin:al.query_end + 1]
+    band_width = abs(sub_ref.shape[0] - sub_read.shape[0]) + 1
+    ops = banded_sw(sub_ref, sub_read, score1, band_width)
+
+    # ConvertAlignment (ssw_cpp.cpp:54-90) + CalculateNumberMismatch
+    # (ssw_cpp.cpp:126-210)
+    al.cigar_string, al.mismatches = _mark_mismatch(
+        al, ref, read, R, ops)
+    return al
 
 
 def banded_sw(ref: np.ndarray, read: np.ndarray, score: int,
@@ -269,3 +378,34 @@ def _mark_mismatch(al: Alignment, ref: np.ndarray, read: np.ndarray,
     if end > 0:
         parts.append(f"{end}S")
     return "".join(parts), mismatches
+
+
+def _ssw_align_native(read: np.ndarray, ref: np.ndarray, lib) -> Alignment | None:
+    import ctypes
+    out = (ctypes.c_int32 * 6)()
+    cap = 4 * (read.shape[0] + ref.shape[0]) + 64
+    buf = ctypes.create_string_buffer(cap)
+    read = np.ascontiguousarray(read, dtype=np.int8)
+    ref = np.ascontiguousarray(ref, dtype=np.int8)
+    rc = lib.ribbit_align(
+        read.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), read.shape[0],
+        ref.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), ref.shape[0],
+        out, buf, cap)
+    if rc < 0 and read.shape[0] and ref.shape[0]:
+        # capacity overflow or internal error: the numpy spec computes the
+        # same alignment
+        return ssw_align(read, ref)
+    if rc < 0:
+        return None
+    al = Alignment(sw_score=out[0], ref_begin=out[1], ref_end=out[2],
+                   query_begin=out[3], query_end=out[4],
+                   cigar_string=buf.value.decode("ascii"), mismatches=out[5])
+    return al
+
+
+def align_strings(query: str, ref: str) -> Alignment | None:
+    """Aligner::Align(query, ref, ref_len, ...) (ssw_cpp.cpp:358-397) in
+    the native C engine (csrc/ribbit_align.c)."""
+    from .native import get_align_lib
+    return _ssw_align_native(translate(query), translate(ref),
+                             get_align_lib())

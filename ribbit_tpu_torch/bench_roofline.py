@@ -51,8 +51,10 @@ ISSUE_LANES_PER_SM = 128
 # int32 operations per (position, row) that the scan passes need at least:
 # the byte compare (anchor_planes, per shift row); the compare, the overlay
 # OR and one operation for each of the two 8-windows (event_words, per
-# plane row); those four and the run test (dense_masks, per motif row)
-SCAN_OPS = {"anchor_planes": 1, "event_words": 4, "dense_masks": 5}
+# plane row); those four and the run test (dense_masks, per motif row); the
+# compare and one operation for the sliding window (eq_sum8, per shift row)
+SCAN_OPS = {"anchor_planes": 1, "event_words": 4, "dense_masks": 5,
+            "eq_sum8": 2}
 # int32 issue slots per DP cell that SSW's recurrence needs at least: 7
 # fused Hopper operations (DPX add-min for diag's add and clamp; max3 for
 # h0, H and E; add-max for F's and E's gap steps; one max for the column
@@ -132,10 +134,13 @@ def scan_work(kernel: str, L: int, cfg: RibbitConfig):
     anchor_planes reads the code and writes one int32 word per 32
     positions and shift row; event_words and dense_masks read code, n_mask
     and those words and write 4 B per 8 plane rows, or 4 B (four int8
-    planes) per motif row."""
+    planes) per motif row; eq_sum8 reads the code and writes two bytes
+    (eq and sum8) per position and shift row."""
     anchors = cfg.nshifts * ((L + 31) // 32) * 4
     if kernel == "anchor_planes":
         return L + anchors, SCAN_OPS[kernel] * cfg.nshifts * L
+    if kernel == "eq_sum8":
+        return L + 2 * cfg.nshifts * L, SCAN_OPS[kernel] * cfg.nshifts * L
     rows = {"event_words": nsp_of(cfg), "dense_masks": cfg.nmotifs}[kernel]
     out = 4 * L * (rows // OUT_ROWS if kernel == "event_words" else rows)
     return 2 * L + anchors + out, SCAN_OPS[kernel] * rows * L

@@ -8,8 +8,10 @@ auto an alias of it, and host runs only when named.  --device picks the
 torch device of the kernels (default cuda; cpu runs their plain PyTorch
 versions, for tests).  With RIBBIT_BATCHED_REFINE set, refinement runs
 through refine_batched with its SSW forward passes on --device, on either
-backend.  The multi-host flags wait for the port's multi-host layer and
-are refused.
+backend; with RIBBIT_PY_REFINE set, --backend host refines through the
+Python engine's refinement.  The Python engine itself has no flag, as in
+ribbit_tpu.cli: call process_fasta(..., engine="python").  The
+multi-host flags wait for the port's multi-host layer and are refused.
 """
 
 from __future__ import annotations

@@ -3,10 +3,11 @@
 Counterpart of ribbit_tpu/native.py.  The port compiles the same C sources
 (it does not copy them) into its own build/native/, keyed by a hash of the
 sources, and differs in three ways: a build that fails raises with the
-compiler's output (there is no Python engine to fall back to, so nothing
-returns None); the library is written under a temporary name and moved
-into place with os.replace, so processes building at once never load a
-half-written file; and RIBBIT_NO_NATIVE is not read.
+compiler's output (the JAX package then moves to its Python engine
+unasked; here nothing returns None); the library is written under a
+temporary name and moved into place with os.replace, so processes
+building at once never load a half-written file; and RIBBIT_NO_NATIVE is
+not read.
 """
 
 from __future__ import annotations
@@ -50,6 +51,20 @@ def _compile(srcs) -> pathlib.Path:
     tmp.unlink(missing_ok=True)
     raise RuntimeError("the C core (csrc/*.c) did not build:\n"
                        + "\n".join(errors))
+
+
+@functools.cache
+def get_align_lib():
+    """The C core with its aligner entry (ribbit_align) bound."""
+    from .core import get_core_lib
+    base = get_core_lib()
+    base.ribbit_align.restype = ctypes.c_int
+    base.ribbit_align.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32,
+    ]
+    return base
 
 
 @functools.cache

@@ -21,9 +21,20 @@ because the route's host traceback (align.banded_sw, pure Python, ~4 ms a
 pair) makes it far slower than the C pool: a single-chromosome FASTA
 would go from seconds to hours.
 
-`--backend host` and contigs of MAX_CONTIG bp or more go to the port's
-host route (host.py).  There is no fallback: a device, build or launch
-failure raises.
+With engine="python" (ribbit_tpu/pipeline.py:144-204 with
+scan_backend="tpu"), a contig runs through the Python engine instead:
+
+  encode -> scan_dense.scan_arrays on `device` (eq_sum8 and anchor_planes
+  kernels, torch ops for the overlay and windows, one copy of five
+  [nshifts, L] arrays to the host) -> scanner replays and lattices ->
+  three-pointer merge -> process_seed / process_seed_motifwise -> BED lines
+
+host._process_python runs it, on the calling thread, contigs one at a
+time; it holds about 510 B/bp on the host at the default config.
+
+`--backend host` and, for the core engine, contigs of MAX_CONTIG bp or
+more go to the port's host route (host.py).  There is no fallback: a
+device, build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -35,12 +46,13 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 from . import host as host_pipeline
+from . import scan_dense
 from .config import RibbitConfig
 from .core import MAX_CONTIG, CoreSession
 from .encode import encode
 from .eventstitch import scan_events_segmented
 from .fasta import read_fasta
-from .host import batched_refine_requested
+from .host import batched_refine_requested, check_engine
 from .scan_events import scan_events_device
 
 SEG_SIZE = 8 << 20   # bp per device segment (eventstitch's default)
@@ -85,17 +97,24 @@ def _over_cap(sid: str, seq: str, cfg: RibbitConfig, device) -> List[str]:
 def process_sequence(sequence_id: str, sequence: str, cfg: RibbitConfig,
                      out: Optional[List[str]] = None,
                      scan_backend: str = "gpu", device="cuda",
-                     nthreads: int = 0) -> List[str]:
-    """BED lines of one sequence (11 tab-separated columns)."""
+                     nthreads: int = 0, engine: str = "core") -> List[str]:
+    """BED lines of one sequence (11 tab-separated columns); engine is
+    "core" (the C core) or "python" (the Python engine)."""
+    check_engine(engine)
     lines: List[str] = out if out is not None else []
     if not sequence:
         return lines
     if scan_backend == "host":
         return host_pipeline.process_sequence(sequence_id, sequence, cfg,
                                               out=lines, nthreads=nthreads,
-                                              device=device)
+                                              device=device, engine=engine)
     if scan_backend != "gpu":
         raise ValueError(f"unknown scan backend {scan_backend!r}")
+    if engine == "python":
+        host_pipeline._process_python(
+            sequence_id, sequence, cfg, lines.append,
+            functools.partial(scan_dense.scan_arrays, device=device))
+        return lines
     if len(sequence) >= MAX_CONTIG:
         lines.extend(_over_cap(sequence_id, sequence, cfg, device))
         return lines
@@ -111,29 +130,32 @@ def process_fasta_records(path: str, cfg: RibbitConfig,
                           scan_backend: str = "gpu", device="cuda",
                           workers: Optional[int] = None,
                           chunk_size: Optional[int] = None,
-                          skip=None):
+                          skip=None, engine: str = "core"):
     """Stream (name, length, lines) per FASTA record, in file order;
     records named in `skip` yield (name, length, None).
 
     `workers` and `chunk_size` apply to 'host', whose records go to
     host.py as it takes them; 'gpu' bounds device memory by its fixed
-    segment size instead."""
+    segment size instead.  The Python engine takes the records one at a
+    time."""
+    check_engine(engine)
     if scan_backend == "host":
         yield from host_pipeline.process_fasta_records(
-            path, cfg, workers, chunk_size, skip, device=device)
+            path, cfg, workers, chunk_size, skip, device=device,
+            engine=engine)
         return
     if scan_backend != "gpu":
         raise ValueError(f"unknown scan backend {scan_backend!r}")
     records = list(read_fasta(path))
     todo = [(i, sid, seq) for i, (sid, seq) in enumerate(records)
             if not (skip and sid in skip)]
-    if len(todo) > 1 and not batched_refine_requested():
+    if len(todo) > 1 and engine == "core" and not batched_refine_requested():
         yield from _fasta_records_overlap(records, todo, cfg, device)
         return
     for sid, seq in records:
         skipped = skip and sid in skip
         yield sid, len(seq), (None if skipped else process_sequence(
-            sid, seq, cfg, device=device))
+            sid, seq, cfg, device=device, engine=engine))
 
 
 def _fasta_records_overlap(records, todo, cfg: RibbitConfig, device):
@@ -187,11 +209,13 @@ def _fasta_records_overlap(records, todo, cfg: RibbitConfig, device):
 
 def process_fasta(path: str, cfg: RibbitConfig, scan_backend: str = "gpu",
                   device="cuda", workers: Optional[int] = None,
-                  chunk_size: Optional[int] = None) -> List[str]:
+                  chunk_size: Optional[int] = None,
+                  engine: str = "core") -> List[str]:
     """Whole-FASTA convenience wrapper: flat BED line list in file order."""
     lines: List[str] = []
     for _sid, _n, r in process_fasta_records(path, cfg, scan_backend, device,
-                                             workers, chunk_size):
+                                             workers, chunk_size,
+                                             engine=engine):
         if r:
             lines.extend(r)
     return lines

@@ -66,10 +66,13 @@ def pack_words(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_words(words: torch.Tensor, L: int) -> torch.Tensor:
-    """Inverse of pack_words: int32 [..., W] -> bool [..., L]."""
-    sh = torch.arange(32, device=words.device, dtype=torch.int64)
-    b = ((words.to(torch.int64) & 0xFFFFFFFF).unsqueeze(-1) >> sh) & 1
-    return b.reshape(*words.shape[:-1], -1)[..., :L].bool()
+    """Inverse of pack_words: int32 [..., W] -> bool [..., L].  Byte ops
+    only (little-endian: byte k of a word holds positions 8k..8k+7), so
+    the temporaries take 1 B per bit."""
+    b = words.contiguous().view(torch.uint8)
+    sh = torch.arange(8, device=words.device, dtype=torch.uint8)
+    bits = (b.unsqueeze(-1) >> sh) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :L].view(torch.bool)
 
 
 def _shift_eq(code: torch.Tensor, s: int) -> torch.Tensor:
@@ -373,24 +376,23 @@ def _decode_c(w: np.ndarray, cfg: RibbitConfig):
     return streams[2], streams[1], streams[0]
 
 
-def device_inputs(code: np.ndarray, n_mask: np.ndarray, device):
-    """uint8 code and n_mask tensors on `device` from encode's host
-    arrays; raises if CUDA is asked for and absent."""
-    if np.dtype(code.dtype).itemsize != 1 or np.dtype(
-            n_mask.dtype).itemsize != 1:
+def device_inputs(*arrays: np.ndarray, device):
+    """uint8 tensors on `device` from encode's host arrays (code, n_mask);
+    raises if CUDA is asked for and absent."""
+    if any(np.dtype(a.dtype).itemsize != 1 for a in arrays):
         raise ValueError(f"want 1-byte code and n_mask (as encode gives), "
-                         f"got {code.dtype}, {n_mask.dtype}")
+                         f"got {[str(a.dtype) for a in arrays]}")
     require_cuda(device)
     dev = torch.device(device)
     return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.uint8))
-                 .to(dev) for a in (code, n_mask))
+                 .to(dev) for a in arrays)
 
 
 def flagwords(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig,
               device="cuda") -> np.ndarray:
     """Event bitmap words of one sequence as int32 [ceil(nsp/8), L] on the
     host: both passes on `device`, then one device-to-host copy."""
-    c, n = device_inputs(code, n_mask, device)
+    c, n = device_inputs(code, n_mask, device=device)
     return event_words(c, n, anchor_planes(c, cfg), cfg).cpu().numpy()
 
 

@@ -132,7 +132,7 @@ masks.launches = 0
 def _device_planes(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig,
                    device):
     """Both passes (anchor_planes, masks) on `device` from host arrays."""
-    c, n = se.device_inputs(code, n_mask, device)
+    c, n = se.device_inputs(code, n_mask, device=device)
     return masks(c, n, se.anchor_planes(c, cfg), cfg)
 
 

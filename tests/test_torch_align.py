@@ -1,6 +1,7 @@
 """The port's SSW forward scoring (ribbit_tpu_torch.align_kernels) against
 the JAX package: the plain PyTorch version of both CUDA kernels equals the
-two Pallas kernels run in interpret mode (align_pallas_v3, align_pallas)
+three Pallas kernels run in interpret mode (align_pallas_v3, K3;
+align_pallas, K4; align_pallas_v2, K9, which ssw_forward_small serves)
 and the JAX package's numpy spec (align._forward_pass, the forward pass
 of ssw_align) on all four outputs, in forward and terminate mode; with
 the port's traceback copies they give ssw_align's alignments.  Integer DP scores: the
@@ -121,6 +122,46 @@ def test_plain_matches_pallas_k3_k4_and_spec(cpu_jax, small_pairs, mode):
         reads, refs, terms, interpret=True), "K3")
     _assert_same(got, align_pallas.batch_forward(
         reads, refs, terms, interpret=True), "K4")
+
+
+def _pallas_pairs(seed):
+    """tests/test_pallas.py:269's 24 (read, ref) pairs."""
+    rng = np.random.default_rng(seed)
+    reads, refs = [], []
+    for t in range(24):
+        n1 = int(rng.integers(3, 160))
+        n2 = int(rng.integers(3, 180))
+        if t % 2 == 0:
+            motif = "".join(BASES[i] for i in rng.integers(
+                0, 4, int(rng.integers(2, 12))))
+            q = list((motif * 40)[:n1])
+            for k in rng.integers(0, max(1, len(q)), max(1, n1 // 8)):
+                q[int(k)] = BASES[int(rng.integers(0, 5))]
+            reads.append(align.translate("".join(q)))
+            refs.append(align.translate((motif * 60)[:n2]))
+        else:
+            reads.append(align.translate("".join(
+                BASES[i] for i in rng.integers(0, 5, n1))))
+            refs.append(align.translate("".join(
+                BASES[i] for i in rng.integers(0, 5, n2))))
+    return reads, refs
+
+
+@pytest.mark.parametrize("mode", ["forward", "terminate"])
+def test_plain_matches_pallas_k9(cpu_jax, mode):
+    """K9 (align_pallas_v2, K3 without row blocks) in interpret mode on
+    tests/test_pallas.py:269's pairs, all within fits(): ssw_forward_small
+    serves it, so the plain version must equal its four outputs."""
+    from ribbit_tpu import align_pallas_v2
+    reads, refs = _pallas_pairs(7)
+    assert all(ak.fits(a.shape[0], b.shape[0]) for a, b in zip(reads, refs))
+    terms = None
+    if mode == "terminate":
+        reads, refs, terms = _reverse(reads, refs, _spec(reads, refs))
+    got = _plain(reads, refs, terms)
+    _assert_same(got, align_pallas_v2.batch_forward(
+        reads, refs, terms, interpret=True), "K9")
+    _assert_same(got, _spec(reads, refs, terms), "spec")
 
 
 @pytest.mark.parametrize("mode", ["forward", "terminate"])

@@ -33,7 +33,10 @@ import os, sys
 import ribbit_tpu_torch, ribbit_tpu_torch.cli, ribbit_tpu_torch.pipeline
 import ribbit_tpu_torch.scan_events, ribbit_tpu_torch.backend
 import ribbit_tpu_torch.cuda_build, ribbit_tpu_torch.refine_batched
+import ribbit_tpu_torch.scan_dense, ribbit_tpu_torch.events
+import ribbit_tpu_torch.lattice
 from ribbit_tpu_torch.cli import main
+from ribbit_tpu_torch.config import RibbitConfig
 
 def foreign():
     return [m for m in sys.modules if m in ("jax", "ribbit_tpu")
@@ -49,6 +52,9 @@ for env, argv in (({}, ["--backend", "gpu", "--device", "cpu"]),
     assert main(argv + ["-i", fa, "-o", os.devnull]) == 0, argv
     os.environ.pop("RIBBIT_BATCHED_REFINE", None)
     assert not foreign(), (argv, env, foreign())
+assert ribbit_tpu_torch.pipeline.process_fasta(
+    fa, RibbitConfig.create(), device="cpu", engine="python")
+assert not foreign(), ("python engine", foreign())
 print("NO_JAX_OK")
 """
 
@@ -56,7 +62,7 @@ print("NO_JAX_OK")
 def test_port_never_imports_jax(golden_dir):
     """Neither jax nor any module of ribbit_tpu is loaded by importing the
     port or by its CLI on the gpu route (--device cpu), the batched route
-    and the host route."""
+    and the host route, nor by the Python engine over the dense scan."""
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     env["PYTHONPATH"] = REPO
     # torch threads capped as in this process: the plain SSW version runs

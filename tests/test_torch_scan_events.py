@@ -122,6 +122,24 @@ def test_streams_match_jax_extractor(pallas_ref, name):
                                   np.asarray(b, np.int64))
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_streams_match_scan_events_tpu(cpu_jax, name):
+    """The port's scan_events_device on CPU equals the XLA extractor
+    (scan_events_tpu.scan_events, which parallel/distributed.py shards),
+    so it can serve that extractor's callers."""
+    from ribbit_tpu import scan_events_tpu
+
+    cfg = _cfg(name)
+    code, n_mask = encode(_case_seq(name))
+    want = scan_events_tpu.scan_events(code, n_mask, cfg)
+    got = se.scan_events_device(code, n_mask, cfg, device="cpu")
+    for gs, ws in zip(got, want):
+        for a, b in zip(gs, ws):
+            assert np.array_equal(np.asarray(a, np.int64),
+                                  np.asarray(b, np.int64))
+    assert got[2][0].shape[0] > 0
+
+
 def _edge_input(L, all_n=False):
     rng = np.random.default_rng(L)
     if all_n:

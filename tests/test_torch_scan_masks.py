@@ -1,10 +1,11 @@
 """The port's dense generation masks (ribbit_tpu_torch.scan_masks) against
-the JAX package: the plain PyTorch version bit for bit against the two
-Pallas kernels that compute the planes (scan_pallas_v4, K5, and
-scan_pallas_full, K6) run in interpret mode, against the event words'
-bits at edge lengths, the device epilogue's streams against
-scan_events_via_pallas, and the golden BED through the C core.  Integer
-planes and streams: the tolerance is exact equality.
+the JAX package: the plain PyTorch version bit for bit against the four
+Pallas kernels that compute the planes (scan_pallas_v4, K5;
+scan_pallas_full, K6; scan_pallas_v3, K7; scan_pallas_v2, K8) run in
+interpret mode, against the event words' bits at edge lengths, the device
+epilogue's streams against scan_events_via_pallas, and the golden BED
+through the C core.  Integer planes and streams: the tolerance is exact
+equality.
 
 The CUDA kernel itself runs only on a card; chip_smoke.py holds it against
 this plain version there."""
@@ -112,6 +113,23 @@ def test_streams_match_scan_events_via_pallas(k6_case):
             assert a.dtype == np.int64
             assert np.array_equal(a, np.asarray(b, np.int64))
         assert gs[0].shape[0] > 0
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("kernel", ["v3", "v2"], ids=["K7", "K8"])
+def test_masks_ref_matches_pallas_k7_k8(cpu_jax, kernel, name):
+    """K7 (scan_pallas_v3, manual DMA) and K8 (scan_pallas_v2, shifts on
+    sublanes) in interpret mode on tests/test_pallas.py:69-103's inputs:
+    dense_masks serves both, so its plain version must equal their planes
+    exactly."""
+    import importlib
+    fn = getattr(importlib.import_module(f"ribbit_tpu.scan_pallas_{kernel}"),
+                 f"generate_masks_pallas_{kernel}")
+    cfg = _cfg(name)
+    code, n_mask = _case_input(name)
+    got = _ref_planes(code, n_mask, cfg)
+    _assert_planes(got, fn(code, n_mask, cfg, interpret=True))
+    assert all(p.any() for p in got)
 
 
 def _edge_input(L, all_n=False):
