@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ribbit_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase, one card
 
 Phases, each of which raises on failure (exit code 1, no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA and nvcc;
@@ -19,9 +19,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
   5. the SSW kernels against their plain version on the card, bit-equal on
      all four outputs in forward and terminate mode: every round-1 pair of
      refine_batched on a 1,031,571 bp contig and its reverse pair, and edge
-     pairs (length 1, both sides of fits(), all N, the largest pair, a
-     17,000 bp perfect match whose score clamps at 32767, a read past the
-     large kernel's shared memory); times at the round-1 batch;
+     pairs (length 1, both sides of fits(), all N, the largest pair, reads
+     of 8 and 31-33, 63-65 rows against refs of 20 and 700, a column max
+     tied across two strips, terminate hits at column 0, the last column
+     and never, a 17,000 bp perfect match whose score clamps at 32767,
+     reads one row past a band and of 29,999 rows); times at the round-1
+     batch (with the wrapper's host plan and its launches alone), and of
+     the launches alone without its largest 1% of pairs and on its
+     largest pair;
   6. device-batched refinement end to end: RIBBIT_BATCHED_REFINE=1 through
      the port's CLI on that contig, launch counts, BED against the port's
      host route and default gpu route, and the wall time split into
@@ -77,6 +82,8 @@ SSW_REPS = 5
 # (the Python traceback, ~5 ms a pair, rules out chr21 here)
 ROUTE_LOCI, ROUTE_SEED = 400, 38
 CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
+BAND_EDGE = 8193               # one row past a band of the large kernel
+LONG_READ = 29_999             # four bands, the last of 5,423 rows
 SOURCES = ("scan_events", "ssw_forward", "alu_probe", "scan_dense")
 BIG_M = 300                    # -M past the Pallas eq/sum8 kernel's cap
 
@@ -448,11 +455,55 @@ def edge_pairs(largest):
         out.append((f"3R+C={3 * 800 + C}", r, ppr(u, C)))
     out.append(("all N", np.full(50, 4, np.int8), np.full(60, 4, np.int8)))
     out.append(("largest round-1 pair", *largest))
+    # strip edges of the wavefront: rows around multiples of a warp, short
+    # (C < 32) and long refs
+    for R in (8, 31, 32, 33, 63, 64, 65):
+        for C in (20, 700):
+            r, u = repeat(R)
+            out.append((f"R={R} C={C}", r, ppr(u, C)))
+    # one column max in two strips: the smaller row must win
+    x = rng.integers(0, 4, 40).astype(np.int8)
+    out.append(("column max tied across strips", np.concatenate([x, x]), x))
     perfect = rng.integers(0, 4, CLAMP_BP).astype(np.int8)
     out.append((f"{CLAMP_BP} bp perfect match", perfect, perfect.copy()))
-    r, u = repeat(ak.SMEM_ROWS + 1072)
-    out.append(("read past shared memory", r, ppr(u, 600)))
+    r, u = repeat(BAND_EDGE)
+    out.append(("one row past a band", r, ppr(u, 100)))
+    r, u = repeat(LONG_READ)
+    out.append((f"{LONG_READ} bp read", r, ppr(u, 600)))
     return out
+
+
+def terminate_edges():
+    """(reads, refs, terms): hits at column 0 and at the last column, and a
+    target never reached."""
+    x = np.random.default_rng(1).integers(0, 4, 50).astype(np.int8)
+    return ([np.int8([2, 1, 0]), x, x],
+            [np.int8([2, 3, 3, 3]), x.copy(), x.copy()],
+            [2, 2 * len(x), 999])
+
+
+def time_split(name, entry, reads, refs, dev, rate):
+    """The launches' time (align_kernels.prepare's launch(), the host plan
+    made before) on a forward batch without its largest 1% of pairs (by
+    cells) and on its largest pair alone: whether the batch's time is its
+    largest pairs' walks."""
+    from ribbit_tpu_torch import align_kernels as ak
+    cells = np.array([r.shape[0] * f.shape[0] for r, f in zip(reads, refs)])
+    by_size = np.argsort(-cells, kind="stable")
+    cut = max(1, len(reads) // 100)
+    for what, keep in ((f"without its largest {cut} pairs", by_size[cut:]),
+                       ("largest pair alone", by_size[:1])):
+        if not len(keep):
+            continue
+        p = ak.pack_pairs([reads[i] for i in keep], [refs[i] for i in keep],
+                          None, dev)
+        ms = cuda_ms(ak.prepare(p, *entry)[1], SSW_REPS)
+        n = int(cells[keep].sum())
+        bms, by = bound(p.read.numel() + p.ref.numel() + 16 * p.n,
+                        n * br.SSW_OPS_PER_CELL, rate)
+        log(f"  {name}, round 1 {what}: {p.n} pairs, {n} cells (largest "
+            f"{int(cells[keep].max())}); the launches alone {ms:.3f} ms "
+            f"({n / ms / 1e6:.2f} GCUPS), bound {bms:.4f} ms by {by}")
 
 
 def phase_ssw(seq: str, cfg, dev, rate):
@@ -466,6 +517,10 @@ def phase_ssw(seq: str, cfg, dev, rate):
         f"pairs ({time.perf_counter() - t:.1f} s on the host)")
     kernels = {"ssw_forward_small": ak.ssw_forward_small,
                "ssw_forward_large": ak.ssw_forward_large}
+    entries = {"ssw_forward_small": (ak.SMALL_LANES,
+                                     "ribbit_ssw_forward_small"),
+               "ssw_forward_large": (ak.LARGE_LANES,
+                                     "ribbit_ssw_forward_large")}
     classes = {"ssw_forward_small": [], "ssw_forward_large": []}
     for i, (r, f) in enumerate(pairs):
         small = ak.fits(r.shape[0], f.shape[0])
@@ -486,11 +541,16 @@ def phase_ssw(seq: str, cfg, dev, rate):
                         cells * br.SSW_OPS_PER_CELL, rate)
         stats[name] = dict(max_abs_err=max(e_f, e_r), ms=ms,
                            plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        # the launches alone: the plan, its order and scratch made before
+        _, launch = ak.prepare(p, *entries[name])
+        launch_ms = cuda_ms(launch, SSW_REPS)
         log(f"  {name} at the round-1 forward batch: {p.n} pairs, {cells} "
             f"cells (largest pair {int((p.rlen * p.clen).max())}); kernel "
-            f"{ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS), "
-            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
-            f"({cells / bms / 1e6:.1f} GCUPS)")
+            f"{ms:.3f} ms with the wrapper's host plan, {launch_ms:.3f} ms "
+            f"the launches alone ({cells / ms / 1e6:.2f} / "
+            f"{cells / launch_ms / 1e6:.2f} GCUPS), plain {plain_ms:.1f} ms, "
+            f"bound {bms:.4f} ms by {by} ({cells / bms / 1e6:.1f} GCUPS)")
+        time_split(name, entries[name], reads, refs, dev, rate)
 
     largest = max(pairs, key=lambda rf: rf[0].shape[0] * rf[1].shape[0])
     edges = edge_pairs(largest)
@@ -503,8 +563,14 @@ def phase_ssw(seq: str, cfg, dev, rate):
                                 + "; ".join(e[0] for e in sel))
         _, _, e_r = check_ssw(kernel, *reverse_pairs(reads, refs, fwd), dev,
                               "edge pairs, reverse (terminate)")
+        reads, refs, terms = terminate_edges()
+        hits, _, e_t = check_ssw(kernel, reads, refs, terms, dev,
+                                 "terminate hits at column 0, the last "
+                                 "column, never")
+        if hits[3].tolist() != [0, len(refs[1]) - 1, -1]:
+            raise AssertionError(f"first hits {hits[3].tolist()}")
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e_f,
-                                         e_r)
+                                         e_r, e_t)
         clamp = [i for i, e in enumerate(sel) if e[0].endswith("match")
                  and e[1].shape[0] == CLAMP_BP]
         for i in clamp:

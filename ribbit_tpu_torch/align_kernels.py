@@ -8,9 +8,15 @@ int32 [4, n]: score, end_ref, end_read and first_hit (the first column
 whose max equals the pair's terminate target, in terminate mode; else -1).
 
   ssw_forward_small  replaces align_pallas_v3._fwd_kernel (one pair per
-                     lane): one thread per pair, for pairs within fits().
+                     lane) and align_pallas_v2._fwd_kernel: a warp per
+                     pair, for pairs within fits().
   ssw_forward_large  replaces align_pallas._fwd_kernel (reads on lanes,
-                     prefix-max F): one block per pair, any length.
+                     prefix-max F): a block of 8 warps per pair, any length.
+
+Both are one striped wavefront (csrc/ssw_forward.cu): each lane owns a
+strip of a band of read rows, with H and E in registers, and hands its
+bottom row to the next lane each step.  launch_plan, a pure function of
+the lengths, picks each pair's strip bucket and the launch order.
 
 Pairs travel ragged (Pairs: codes concatenated with int64 offsets), with
 no padding to the batch maximum; the Pallas kernels' padded layouts were a
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -38,9 +45,8 @@ GAP_E = 1
 WORD_MAX = 32767
 RB = 8                   # fits(): rows are counted in blocks of 8
 MAX_ROWS = 2560          # fits(): 3R + C cap of the one-pair-per-lane class
-# rows whose H and E (8 B a row) fit the large kernel's dynamic shared
-# memory: 227 KiB a block on Hopper, less 1 KiB for its static arrays
-SMEM_ROWS = (232448 - 1024) // 8
+SMALL_LANES = 32         # a warp per pair
+LARGE_LANES = 256        # a block of 8 warps per pair
 
 
 def fits(max_read_len: int, max_ref_len: int) -> bool:
@@ -183,6 +189,41 @@ def ssw_forward_ref(p: Pairs) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Launch plan (a pure function of the lengths; the CPU tests cover it)
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """How a batch goes through one kernel."""
+    key: np.ndarray          # int64 [n]: the launch order is argsort(key),
+                             # bucket by bucket in the strips' order, then
+                             # cells descending
+    counts: np.ndarray       # int32 [len(strips)]: pairs of each bucket
+    strip: np.ndarray        # int64 [n]: rows a lane owns in a band, by pair
+    bands: np.ndarray        # int64 [n]: bands of lanes x strip rows
+
+
+def launch_plan(rlen, clen, lanes: int, strips) -> Plan:
+    """Each pair's strip, from `strips` (rows a lane, descending: the
+    kernel's table, ribbit_ssw_strips): the smallest that holds its rows on
+    `lanes` lanes in one band, else the largest in as many bands as it
+    takes.  The largest strips launch first; within a bucket the pairs go
+    by cells, largest first, so a block's pairs are alike in size and the
+    longest walks start first."""
+    rlen = np.asarray(rlen, np.int64)
+    clen = np.asarray(clen, np.int64)
+    table = np.asarray(strips, np.int64)
+    rows = np.maximum(rlen, 1)
+    need = np.minimum(-(-rows // lanes), table[0])
+    # the last bucket (smallest strip) that still holds `need` rows
+    bucket = np.searchsorted(-table, -need, side="right") - 1
+    strip = table[bucket]
+    bands = -(-rows // (lanes * strip))
+    key = (bucket << 50) - np.minimum(rlen * clen, (1 << 50) - 1)
+    counts = np.bincount(bucket, minlength=len(table)).astype(np.int32)
+    return Plan(key, counts, strip, bands)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -192,53 +233,81 @@ def _lib() -> ctypes.CDLL:
     from .cuda_build import load
     lib = load("ssw_forward")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ribbit_ssw_forward_small.restype = I
-    lib.ribbit_ssw_forward_small.argtypes = [P, P, P, P, P, P, I, P, P, P, P,
-                                             I, P]
-    lib.ribbit_ssw_forward_large.restype = I
-    lib.ribbit_ssw_forward_large.argtypes = [P, P, P, P, P, P, I, I, P, P, P,
-                                             I, P]
+    for fn in (lib.ribbit_ssw_forward_small, lib.ribbit_ssw_forward_large):
+        fn.restype = I
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, P, P, I, P, P, P, P]
+    lib.ribbit_ssw_strips.restype = I
+    lib.ribbit_ssw_strips.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
     return lib
 
 
-def _order(p: Pairs) -> torch.Tensor:
-    """Pairs by cells, largest first (int32 on the pairs' device): a warp
-    of the small kernel or a wave of the large one gets pairs alike in
-    size, and the largest pairs start first."""
-    order = np.argsort(-(p.rlen * p.clen), kind="stable").astype(np.int32)
-    return torch.from_numpy(order).to(p.read.device)
+@functools.cache
+def strips() -> tuple:
+    """The kernels' strip buckets (rows a lane, descending), from
+    csrc/ssw_forward.cu's table."""
+    table = ctypes.c_void_p()
+    k = _lib().ribbit_ssw_strips(ctypes.byref(table))
+    return tuple(ctypes.cast(table, ctypes.POINTER(ctypes.c_int32))[:k])
 
 
-def _launch_args(p: Pairs):
-    return (p.read.data_ptr(), p.read_off.data_ptr(), p.ref.data_ptr(),
-            p.ref_off.data_ptr(), p.term.data_ptr())
+@functools.cache
+def _fork(device: torch.device):
+    """What the kernels' entries fork the strip buckets onto, made once
+    per device: one stream per bucket (their handles as a C array), the
+    fork and join events, and the lock that keeps two callers from
+    interleaving on them."""
+    streams = tuple(torch.cuda.Stream(device) for _ in strips())
+    handles = (ctypes.c_void_p * len(streams))(
+        *(s.cuda_stream for s in streams))
+    events = (torch.cuda.Event(), torch.cuda.Event())
+    for e in events:                   # a torch event exists once recorded
+        e.record(streams[0])
+    return streams, handles, events, threading.Lock()
 
 
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+def prepare(p: Pairs, lanes: int, entry: str):
+    """A wrapper's work before its launches: the plan, its order on the
+    card (sorted there), the output and the scratch for pairs of more than
+    one band.  Returns (out, launch); launch() enqueues one kernel instance
+    per bucket of the plan, each on a stream of its own forked from the
+    current stream and joined back to it, and raises if CUDA refuses
+    one."""
+    dev, n = p.read.device, p.n
+    out = torch.empty(4, n, dtype=torch.int32, device=dev)
+    plan = launch_plan(p.rlen, p.clen, lanes, strips())
+    key = torch.from_numpy(plan.key).pin_memory().to(dev, non_blocking=True)
+    order = torch.argsort(key).to(torch.int32)
+    nref = p.ref.numel()
+    # a band's bottom row per column: 2 buffers x 5 int32 a ref base
+    scratch = torch.empty(10 * nref if (plan.bands > 1).any() else 1,
+                          dtype=torch.int32, device=dev)
+    _, sides, (fork, join), lock = _fork(dev)
+
+    def launch():
+        with lock:
+            rc = getattr(_lib(), entry)(
+                p.read.data_ptr(), p.read_off.data_ptr(), p.ref.data_ptr(),
+                p.ref_off.data_ptr(), p.term.data_ptr(), order.data_ptr(),
+                plan.counts.ctypes.data_as(ctypes.c_void_p), n, nref,
+                scratch.data_ptr(), out.data_ptr(), dev.index,
+                torch.cuda.current_stream(dev).cuda_stream, sides,
+                fork.cuda_event, join.cuda_event)
+        if rc != 0:
+            raise RuntimeError(f"{entry}: CUDA error {rc} at launch")
+    return out, launch
 
 
 def ssw_forward_small(p: Pairs) -> torch.Tensor:
-    """Forward scores int32 [4, n] of a batch of fits() pairs.  Kernel:
-    ribbit_ssw_forward_small."""
+    """Forward scores int32 [4, n] of a batch of fits() pairs: a warp per
+    pair.  Kernel: ribbit_ssw_forward_small, one launch per strip bucket
+    that holds pairs; `launches` counts the calls that launch, not the
+    buckets."""
     if not _kernel_device(p):
         return ssw_forward_ref(p)
-    dev, n = p.read.device, p.n
-    out = torch.empty(4, n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    R = max(int(p.rlen.max()), 1)
-    H = torch.empty(R * n, dtype=torch.int32, device=dev)
-    E = torch.empty_like(H)
-    rd = torch.empty(R * n, dtype=torch.uint8, device=dev)
-    order = _order(p)
-    rc = _lib().ribbit_ssw_forward_small(
-        *_launch_args(p), order.data_ptr(), n, H.data_ptr(),
-        E.data_ptr(), rd.data_ptr(), out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "ssw_forward_small")
-    ssw_forward_small.launches += 1
+    out, launch = prepare(p, SMALL_LANES, "ribbit_ssw_forward_small")
+    if p.n:
+        launch()
+        ssw_forward_small.launches += 1
     return out
 
 
@@ -246,27 +315,16 @@ ssw_forward_small.launches = 0
 
 
 def ssw_forward_large(p: Pairs) -> torch.Tensor:
-    """Forward scores int32 [4, n] of a batch of pairs of any length.
-    Kernel: ribbit_ssw_forward_large."""
+    """Forward scores int32 [4, n] of a batch of pairs of any length: a
+    block of 8 warps per pair.  Kernel: ribbit_ssw_forward_large, one launch
+    per strip bucket that holds pairs; `launches` counts the calls that
+    launch, not the buckets."""
     if not _kernel_device(p):
         return ssw_forward_ref(p)
-    dev, n = p.read.device, p.n
-    out = torch.empty(4, n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    in_smem = p.rlen <= SMEM_ROWS
-    smem_rows = int(p.rlen[in_smem].max(initial=0))
-    # pairs past shared memory keep H and E at their read offsets
-    scratch = p.read.numel() if not in_smem.all() else 1
-    Hg = torch.empty(scratch, dtype=torch.int32, device=dev)
-    Eg = torch.empty_like(Hg)
-    order = _order(p)
-    rc = _lib().ribbit_ssw_forward_large(
-        *_launch_args(p), order.data_ptr(), n, smem_rows,
-        Hg.data_ptr(), Eg.data_ptr(), out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "ssw_forward_large")
-    ssw_forward_large.launches += 1
+    out, launch = prepare(p, LARGE_LANES, "ribbit_ssw_forward_large")
+    if p.n:
+        launch()
+        ssw_forward_large.launches += 1
     return out
 
 

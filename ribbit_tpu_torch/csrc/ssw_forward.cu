@@ -1,302 +1,388 @@
 // SSW forward scoring of device-batched refinement, written for Hopper
 // (sm_90a).
 //
-// Both kernels compute, for each (read, ref) pair of codes 0-4, the exact
-// forward pass of the reference's local alignment (ribbit_tpu/align.py
-// _forward_pass, csrc/ribbit_align.c): per ref column i and read row j,
+// Replaces three TPU kernels that compute one function:
+//   ribbit_tpu/align_pallas_v3.py:35 _fwd_kernel (K3, one pair a lane, the
+//     pairs within fits()) and ribbit_tpu/align_pallas_v2.py:49 (K9, K3
+//     without row blocks): ribbit_ssw_forward_small;
+//   ribbit_tpu/align_pallas.py:59 _fwd_kernel (K4, reads on lanes, any
+//     length): ribbit_ssw_forward_large.
+// For each (read, ref) pair of codes 0-4 they compute the exact forward pass
+// of the reference's local alignment (ribbit_tpu/align.py _forward_pass,
+// csrc/ribbit_align.c): per ref column i and read row j,
 //
 //     diag = min(H[i-1][j-1] + (ref[i] == read[j] < 4 ? 2 : -2), 32767)
 //     h0   = max(diag, E[j], 0)
-//     F[j] = max(F[j-1] - 1, h0[j-1] - 3)            (lazy F, 0 at j = 0)
-//     H[j] = max(h0, F[j], 0)
+//     F[j] = max(F[j-1] - 1, h0[j-1] - 3, 0)         (lazy F, 0 at j = 0)
+//     H[j] = max(h0, F[j])
 //     E[j] = max(E[j] - 1, H[j] - 3, 0)
 //
-// and returns four int32 per pair: score (best column max), end_ref (the
-// first column that is strictly greater), end_read (the smallest row
-// reaching the max in that column) and first_hit (terminate mode, term >=
-// 0: the first column whose max equals term; the pass stops after it).
-// Pairs are ragged: read and ref codes concatenated, with int64 offsets;
-// nothing is padded to the batch maximum.  Output rows are [4][n].
+// (clamping F at 0 each row gives max(F, 0) of the unclamped chain, and only
+// that reaches H) and return four int32 per pair: score (best column max),
+// end_ref (the first column that is strictly greater), end_read (the
+// smallest row reaching the max in that column) and first_hit (terminate
+// mode, term >= 0: the first column whose max equals term; the pass stops
+// after it).  Pairs are ragged: codes concatenated, with int64 offsets.
+// Output rows are [4][n].
 //
-// ssw_forward_small_kernel (replaces align_pallas_v3._fwd_kernel,
-//   ribbit_tpu/align_pallas_v3.py:35) takes K3's mapping: one thread per
-//   pair, columns outer and rows inner, carrying h_old[j-1], h0[j-1], f,
-//   the column max and its row.  H, E and the read live in scratch laid
-//   out [row][thread], so the 32 threads of a warp touch 32 neighbouring
-//   words.  Threads take pairs in the order given (the wrapper sorts by
-//   cells, largest first) so that a warp's pairs are alike in size.
-//
-// ssw_forward_large_kernel (replaces align_pallas._fwd_kernel,
-//   ribbit_tpu/align_pallas.py:59) takes K4's mapping: one block per pair,
-//   read rows across the block's threads in tiles of LARGE_THREADS.  Per
-//   column F comes from a block-wide inclusive prefix max of h0[j] + j
-//   (F[j] = max(P[j-1] - 3 - (j-1), 0), K4's formula); the column max and
-//   its smallest row come from one 64-bit max of (H << 32 | ~j).  H and E
-//   live in dynamic shared memory where the pair's 8 * R bytes fit
-//   (smem_rows), otherwise in global scratch at the pair's read offset.
-//   There is no row cap.
+// Design: a striped wavefront over each pair's rows.  A group of G lanes
+// serves one pair (G = 32, a warp, in the small kernel; G = 32 x
+// LARGE_WARPS, a block, in the large one).  Lane k owns the S read rows
+// [k S, k S + S) of a band of G S rows, with H and E of its rows in
+// registers (S is a template parameter: one instance per strip bucket of
+// SSW_STRIPS), and takes COLS ref columns a step: columns
+// COLS (t - k) to COLS (t - k) + COLS - 1 at step t (COLS is 1 in the small
+// kernel and 2 in the large one, whose steps each end on a barrier).
+// After each step lane k hands lane k + 1 its bottom row at those columns:
+// H (the next column's diag input), h0 - 3 and F (the lazy F chain) and
+// the column max so far with its row, packed as H << 16 | (65534 - band
+// row), so that one integer max keeps the smallest row of the greatest
+// value.  Within a warp the hand-off is a __shfl_up_sync; between the large
+// kernel's warps it goes through a two-slot ring in shared memory, one
+// barrier a step.  The last lane with rows sees each column's max in
+// column order and keeps score, end_ref, end_read and first_hit; a
+// terminate hit stops the whole group at once (a vote, or a shared flag
+// read after the step's barrier).  Pairs longer than one band run band
+// after band: the last lane of a band writes its bottom row per column to
+// scratch (2 x 5 int32 a ref base), and lane 0 of the next band reads it,
+// so there is no row cap and no H or E in device memory.  The cell
+// arithmetic is Hopper's DPX instructions: add-min for diag, max-relu for
+// h0, add-max-relu for the F and E gap steps.  Each strip bucket is a
+// launch of its own, and the launches run side by side on streams forked
+// from the caller's and joined back to it (the caller owns the streams
+// and the two events).
 //
 // What bounds them on this card: integer operations.  The recurrence needs
-// at least 7 fused operations a cell (DPX add-min for diag, max3 for h0, H
-// and E, add-max for the F and E gap steps, a max for the column) and
-// reads nothing from device memory beyond the pair's codes; on 16-bit
-// values (every score is <= 32767) the s16x2 forms take two cells a 32-bit
-// slot, so the bound is cells x 3.5 over the SMs' int32 rate (132 SMs x 64
-// lanes x clock).  These kernels spend more: about 19 int32 operations a
-// cell in the inner loop (the score select, the column max and its row
-// each cell), one 32-bit lane per cell, no striping, no anti-diagonal
-// wavefronts.  The small kernel moves 17 B of scratch a cell (H, E and the
-// read, [row][thread]); where those accesses are served from (L1, L2 or
-// HBM) was not measured.
+// at least 7 fused operations a cell; on 16-bit values (every score is <=
+// 32767) the s16x2 forms would take two cells a 32-bit slot, so the bound
+// is cells x 3.5 int32 issue slots over the card's issue limit, 128 lanes
+// an SM a clock (bench_roofline.ISSUE_LANES_PER_SM), and reads nothing
+// from device memory beyond the pairs' codes.  These kernels use one 32-bit
+// lane a cell and about 11 operations: the score from a per-column match
+// mask (2), diag (1), h0 (1), F (2), H (1), E (2), the packed column max
+// (2).  A group's pair runs on one SM, so the batch's largest pair bounds
+// its time from below at that pair's cells over one SM's rate.  What holds
+// them on the longest pairs (per-warp clock64() spans on an H100): a step's
+// fixed work (waiting for the hand-off, the shuffles, the last lane's
+// bookkeeping, the large kernel's barrier) took about as long as a
+// column's rows, whose instructions issue at about one a clock a warp;
+// two columns a step share that work in the large kernel.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define GAP_O 3
 #define GAP_E 1
 #define WORD_MAX 32767
-#define NEG (-(1 << 24))
-#define SMALL_THREADS 128
-#define LARGE_THREADS 256
-#define LARGE_WARPS (LARGE_THREADS / 32)
 #define FULL_MASK 0xffffffffu
+#define SMALL_WARPS 4          // pairs (one a warp) per block, small kernel
+#define LARGE_WARPS 8          // warps on one pair, large kernel
+#define ARG_IN 0xffff          // row field of a column max from the band above
+#define SMALL_COLS 1           // ref columns a lane takes in one step: small
+#define LARGE_COLS 2           // and large kernel
 
-__device__ __forceinline__ long long kmax(long long a, long long b)
+struct __align__(16) Carry {   // a strip's bottom row at one column
+    int h, h0m3, f, key;
+};
+
+// scratch[(buf * 5 + field) * nref + ref position]: a band's bottom row per
+// column (H, h0 - 3, F, column max, its row), double-buffered by band
+__device__ __forceinline__ int *field_of(int32_t *scratch, int buf, int fld,
+                                         int nref, int64_t pos)
 {
-    return a > b ? a : b;
+    return scratch + (size_t)(buf * 5 + fld) * nref + pos;
 }
 
-__global__ void __launch_bounds__(SMALL_THREADS)
-ssw_forward_small_kernel(const uint8_t *__restrict__ read,
-                         const int64_t *__restrict__ read_off,
-                         const uint8_t *__restrict__ ref,
-                         const int64_t *__restrict__ ref_off,
-                         const int32_t *__restrict__ term,
-                         const int32_t *__restrict__ order, int n,
-                         int32_t *__restrict__ H, int32_t *__restrict__ E,
-                         uint8_t *__restrict__ rd, int32_t *__restrict__ out)
+__device__ __forceinline__ uint32_t match_mask(int rc, uint32_t m0,
+                                               uint32_t m1, uint32_t m2,
+                                               uint32_t m3)
 {
-    const int t = blockIdx.x * SMALL_THREADS + threadIdx.x;
-    if (t >= n)
-        return;
-    const int p = order[t];
-    const int64_t r0 = read_off[p], c0 = ref_off[p];
-    const int R = (int)(read_off[p + 1] - r0);
-    const int C = (int)(ref_off[p + 1] - c0);
-    const int tm = term[p];
-
-    for (int j = 0; j < R; j++) {
-        const size_t k = (size_t)j * n + t;
-        H[k] = 0;
-        E[k] = 0;
-        rd[k] = read[r0 + j];
-    }
-    int best = 0, end_ref = -1, end_read = -1, first_hit = -1;
-    for (int i = 0; i < C; i++) {
-        const int rc = ref[c0 + i];
-        const bool base = rc < 4;
-        int h_jm1 = 0, h0_prev = NEG, f = NEG, colmax = 0, argj = -1;
-        size_t k = t;
-        for (int j = 0; j < R; j++, k += n) {
-            const int h_j = H[k], e_j = E[k];
-            f = max(f - GAP_E, h0_prev - GAP_O);
-            const int sc = (base && rc == rd[k]) ? 2 : -2;
-            const int diag = min(h_jm1 + sc, WORD_MAX);
-            const int h0 = max(max(diag, e_j), 0);
-            const int hn = max(h0, max(f, 0));
-            H[k] = hn;
-            E[k] = max(max(e_j - GAP_E, hn - GAP_O), 0);
-            if (hn > colmax) {             // strictly greater: smallest row
-                colmax = hn;
-                argj = j;
-            }
-            h_jm1 = h_j;
-            h0_prev = h0;
-        }
-        if (colmax > best) {
-            best = colmax;
-            end_ref = i;
-            end_read = argj;
-        }
-        if (tm >= 0 && colmax == tm) {     // the reference breaks after it
-            first_hit = i;
-            break;
-        }
-    }
-    out[p] = best;
-    out[n + p] = end_ref;
-    out[2 * n + p] = end_read;
-    out[3 * n + p] = first_hit;
+    return rc == 0 ? m0 : rc == 1 ? m1 : rc == 2 ? m2 : rc == 3 ? m3 : 0u;
 }
 
-// Shared-memory hazards: a tile's threads read H[j-1], H[j], E[j] before the
-// scan's barrier and write H[j], E[j] after it.  Row j-1 of a tile's first
-// thread belongs to the previous tile, already overwritten, so its old value
-// travels in s_carry; s_carry, s_wt and s_red are double-buffered by tile
-// (or column) parity, so one barrier a tile and one a column suffice.
-__global__ void __launch_bounds__(LARGE_THREADS)
-ssw_forward_large_kernel(const uint8_t *__restrict__ read,
-                         const int64_t *__restrict__ read_off,
-                         const uint8_t *__restrict__ ref,
-                         const int64_t *__restrict__ ref_off,
-                         const int32_t *__restrict__ term,
-                         const int32_t *__restrict__ order, int smem_rows,
-                         int32_t *Hg, int32_t *Eg, int32_t *__restrict__ out,
-                         int n)
+// One ref column down a lane's strip: H and E in place, the row above's
+// bottom x in, the strip's bottom out.  hd is H of the row above at the
+// previous column (the first row's diag); m has bit j set where row j
+// matches the column's base.
+template <int S>
+__device__ __forceinline__ Carry strip_column(int (&H)[S], int (&E)[S],
+                                              const int (&cj)[S], uint32_t m,
+                                              int hd, Carry x)
 {
-    extern __shared__ int32_t sm[];
-    __shared__ int32_t s_wt[2][LARGE_WARPS];
-    __shared__ int32_t s_carry[2];
-    __shared__ long long s_red[2][LARGE_WARPS];
+    int f = x.f, h0m3 = x.h0m3, key = x.key;
+#pragma unroll
+    for (int j = 0; j < S; j++) {
+        const int sc = (int)((m >> j) & 1u) * 4 - 2;
+        const int diag = __viaddmin_s32(hd, sc, WORD_MAX);
+        hd = H[j];
+        const int h0 = __vimax_s32_relu(diag, E[j]);
+        f = __viaddmax_s32_relu(f, -GAP_E, h0m3);
+        const int hn = max(h0, f);
+        E[j] = __viaddmax_s32_relu(E[j], -GAP_E, hn - GAP_O);
+        H[j] = hn;
+        key = max(key, hn * 65536 + cj[j]);
+        h0m3 = h0 - GAP_O;
+    }
+    return Carry{H[S - 1], h0m3, f, key};
+}
 
-    const int p = order[blockIdx.x];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int64_t r0 = read_off[p], c0 = ref_off[p];
-    const int R = (int)(read_off[p + 1] - r0);
-    const int C = (int)(ref_off[p + 1] - c0);
-    const int tm = term[p];
-    const uint8_t *rd = read + r0;
-    int32_t *H, *E;
-    if (R <= smem_rows) {
-        H = sm;
-        E = sm + R;
+template <int W, int S, int COLS>
+__global__ void __launch_bounds__(W == 1 ? 32 * SMALL_WARPS : 32 * W)
+ssw_strip_kernel(const uint8_t *__restrict__ read,
+                 const int64_t *__restrict__ read_off,
+                 const uint8_t *__restrict__ ref,
+                 const int64_t *__restrict__ ref_off,
+                 const int32_t *__restrict__ term,
+                 const int32_t *__restrict__ order, int count, int nref,
+                 int32_t *scratch, int32_t *__restrict__ out, int n)
+{
+    constexpr int G = 32 * W;                  // lanes on one pair
+    __shared__ Carry ring[2][W][COLS];
+    __shared__ int s_stop;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int slot, k;
+    if (W == 1) {
+        slot = blockIdx.x * SMALL_WARPS + warp;
+        k = lane;
+        if (slot >= count)
+            return;                            // the whole warp
     } else {
-        H = Hg + r0;
-        E = Eg + r0;
-    }
-    for (int j = tid; j < R; j += LARGE_THREADS) {
-        H[j] = 0;
-        E[j] = 0;
-    }
-    __syncthreads();
-
-    const int ntiles = (R + LARGE_THREADS - 1) / LARGE_THREADS;
-    int best = 0, end_ref = -1, end_read = -1, first_hit = -1;
-    int par = 0;
-    for (int i = 0; i < C; i++) {
-        const int rc = ref[c0 + i];
-        const bool base = rc < 4;
-        int run = NEG;                 // max of h0[k] + k over earlier tiles
-        long long key = 0;             // this thread's (H << 32 | ~j) max
-        for (int tile = 0; tile < ntiles; tile++) {
-            const int j = tile * LARGE_THREADS + tid;
-            const bool valid = j < R;
-            int h_j = 0, e_j = 0, h_jm1 = 0, code = 4;
-            if (valid) {
-                h_j = H[j];
-                e_j = E[j];
-                code = rd[j];
-                if (j > 0)
-                    h_jm1 = tid == 0 ? s_carry[par] : H[j - 1];
-            }
-            if (tid == LARGE_THREADS - 1)
-                s_carry[par ^ 1] = h_j;
-            const int sc = (base && rc == code) ? 2 : -2;
-            const int diag = min(h_jm1 + sc, WORD_MAX);
-            const int h0 = max(max(diag, e_j), 0);
-
-            // block-wide prefix max of h0[j] + j: warp scan, then the
-            // warps' totals through shared memory
-            int x = valid ? h0 + j : NEG;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int y = __shfl_up_sync(FULL_MASK, x, o);
-                if (lane >= o)
-                    x = max(x, y);
-            }
-            int before = __shfl_up_sync(FULL_MASK, x, 1);
-            if (lane == 0)
-                before = NEG;
-            if (lane == 31)
-                s_wt[par][warp] = x;
-            __syncthreads();
-            int total = NEG;
-#pragma unroll
-            for (int w = 0; w < LARGE_WARPS; w++) {
-                const int v = s_wt[par][w];
-                if (w < warp)
-                    before = max(before, v);
-                total = max(total, v);
-            }
-            before = max(before, run);       // max over rows k < j
-            run = max(run, total);
-
-            const int F = j == 0 ? 0
-                                 : max(before - GAP_O - (j - 1) * GAP_E, 0);
-            const int hn = max(h0, F);
-            if (valid) {
-                H[j] = hn;
-                E[j] = max(max(e_j - GAP_E, hn - GAP_O), 0);
-                key = kmax(key, ((long long)hn << 32)
-                                    | (long long)(0x7fffffff - j));
-            }
-            par ^= 1;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            key = kmax(key, __shfl_xor_sync(FULL_MASK, key, o));
-        if (lane == 0)
-            s_red[i & 1][warp] = key;
+        slot = blockIdx.x;
+        k = threadIdx.x;
+        if (k == 0)
+            s_stop = 0;
         __syncthreads();
-        long long m = 0;
-#pragma unroll
-        for (int w = 0; w < LARGE_WARPS; w++)
-            m = kmax(m, s_red[i & 1][w]);
-        const int colmax = (int)(m >> 32);
-        if (colmax > best) {
-            best = colmax;
-            end_ref = i;
-            end_read = 0x7fffffff - (int)(m & 0xffffffff);
-        }
-        if (tm >= 0 && colmax == tm) {       // uniform across the block
-            first_hit = i;
-            break;
-        }
     }
-    if (tid == 0) {
-        out[p] = best;
-        out[n + p] = end_ref;
-        out[2 * n + p] = end_read;
-        out[3 * n + p] = first_hit;
+    const int p = order[slot];
+    const int64_t r0 = read_off[p], c0 = ref_off[p];
+    const int R = (int)(read_off[p + 1] - r0);
+    const int C = (int)(ref_off[p + 1] - c0);
+    const int tm = term[p];
+    const int nbands = R > G * S ? (R + G * S - 1) / (G * S) : 1;
+
+    int best = 0, end_ref = -1, end_read = -1, first_hit = -1;
+    for (int b = 0; b < nbands; b++) {
+        const int row0 = b * G * S;
+        const int rows = min(R - row0, G * S);
+        const int last = rows > S ? (rows + S - 1) / S - 1 : 0;
+        const bool final_band = b == nbands - 1;
+        const int in = b & 1, outb = in ^ 1;
+
+        // my strip: match masks of the four bases, H, E and each row's
+        // key field (INT_MIN past R: such a row never holds a column max)
+        uint32_t m0 = 0, m1 = 0, m2 = 0, m3 = 0;
+        int H[S], E[S], cj[S];
+#pragma unroll
+        for (int j = 0; j < S; j++) {
+            const int jl = k * S + j, row = row0 + jl;
+            const bool valid = k <= last && jl < rows;
+            const int code = valid ? read[r0 + row] : 4;
+            m0 |= (uint32_t)(code == 0) << j;
+            m1 |= (uint32_t)(code == 1) << j;
+            m2 |= (uint32_t)(code == 2) << j;
+            m3 |= (uint32_t)(code == 3) << j;
+            H[j] = 0;
+            E[j] = 0;
+            cj[j] = valid ? (ARG_IN - 1) - jl : INT_MIN;
+        }
+
+        // step t: my columns COLS (t - k) + q, q < COLS
+        int hprev = 0;            // H above my strip at the previous column
+        Carry got[COLS];
+        int rc_next[COLS];
+#pragma unroll
+        for (int q = 0; q < COLS; q++) {
+            got[q] = Carry{0, -GAP_O, 0, 0};
+            rc_next[q] = (k == 0 && q < C) ? ref[c0 + q] : 4;
+        }
+        const int steps = (C + COLS - 1) / COLS + last;
+        for (int t = 0; t < steps; t++) {
+            const int cbase = (t - k) * COLS;
+            int rc[COLS];
+            Carry x[COLS], o[COLS];
+#pragma unroll
+            for (int q = 0; q < COLS; q++) {
+                const int c = cbase + q, cn = c + COLS;
+                rc[q] = rc_next[q];
+                if (cn >= 0 && cn < C)         // the next step's column
+                    rc_next[q] = ref[c0 + cn];
+                x[q] = got[q];
+                if (k == 0) {
+                    x[q] = Carry{0, -GAP_O, 0, 0};
+                    if (b > 0 && c >= 0 && c < C) {
+                        x[q].h = *field_of(scratch, in, 0, nref, c0 + c);
+                        x[q].h0m3 = *field_of(scratch, in, 1, nref, c0 + c);
+                        x[q].f = *field_of(scratch, in, 2, nref, c0 + c);
+                        x[q].key = (*field_of(scratch, in, 3, nref, c0 + c)
+                                    << 16) | ARG_IN;
+                    }
+                } else if (W > 1 && lane == 0) {
+                    x[q] = ring[(t - 1) & 1][warp - 1][q];
+                }
+                o[q] = x[q];
+                if (k <= last && c >= 0 && c < C) {
+                    o[q] = strip_column<S>(
+                        H, E, cj, match_mask(rc[q], m0, m1, m2, m3), hprev,
+                        x[q]);
+                    hprev = x[q].h;
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < COLS; q++) {
+                got[q].h = __shfl_up_sync(FULL_MASK, o[q].h, 1);
+                got[q].h0m3 = __shfl_up_sync(FULL_MASK, o[q].h0m3, 1);
+                got[q].f = __shfl_up_sync(FULL_MASK, o[q].f, 1);
+                got[q].key = __shfl_up_sync(FULL_MASK, o[q].key, 1);
+                if (W > 1 && lane == 31)
+                    ring[t & 1][warp][q] = o[q];
+            }
+            // the last lane's bookkeeping, as selects on every lane: a
+            // branch would hold the warp on that one lane each step
+            bool stop = false;
+#pragma unroll
+            for (int q = 0; q < COLS; q++) {
+                const int c = cbase + q;
+                const bool mine = k == last && c >= 0 && c < C && !stop;
+                const int cm = o[q].key >> 16, fld = o[q].key & 0xffff;
+                int row = row0 + (ARG_IN - 1) - fld;
+                if (b > 0 && mine && fld == ARG_IN)
+                    row = *field_of(scratch, in, 4, nref, c0 + c);
+                if (!final_band) {
+                    if (mine) {
+                        *field_of(scratch, outb, 0, nref, c0 + c) = o[q].h;
+                        *field_of(scratch, outb, 1, nref, c0 + c) = o[q].h0m3;
+                        *field_of(scratch, outb, 2, nref, c0 + c) = o[q].f;
+                        *field_of(scratch, outb, 3, nref, c0 + c) = cm;
+                        *field_of(scratch, outb, 4, nref, c0 + c) = row;
+                    }
+                } else {
+                    const bool better = mine && cm > best;  // first column
+                    best = better ? cm : best;
+                    end_ref = better ? c : end_ref;
+                    end_read = better ? row : end_read;
+                    const bool hit = mine && tm >= 0 && cm == tm;
+                    first_hit = hit ? c : first_hit;    // and it breaks
+                    stop = stop || hit;
+                }
+            }
+            if (W > 1) {
+                if (stop)
+                    s_stop = 1;
+                __syncthreads();
+                if (s_stop)
+                    break;
+            } else if (__any_sync(FULL_MASK, stop)) {
+                break;
+            }
+        }
+        // the band's scratch rows reach the next band's lane 0
+        if (W > 1)
+            __syncthreads();
+        else
+            __syncwarp();
+        if (final_band && k == last) {
+            out[p] = best;
+            out[n + p] = end_ref;
+            out[2 * n + p] = end_read;
+            out[3 * n + p] = first_hit;
+        }
     }
 }
 
-// All pointers are device pointers on `device`; the launch goes onto
-// `stream` and does not synchronise.  Returns cudaGetLastError().
-extern "C" int ribbit_ssw_forward_small(
-    const uint8_t *read, const int64_t *read_off, const uint8_t *ref,
-    const int64_t *ref_off, const int32_t *term, const int32_t *order, int n,
-    int32_t *H, int32_t *E, uint8_t *rd, int32_t *out, int device,
-    cudaStream_t stream)
+// Rows a lane holds in registers: one kernel instance per strip bucket, in
+// the order the host plans and launches them (align_kernels.launch_plan
+// reads this table through ribbit_ssw_strips)
+#define SSW_STRIPS 32, 20, 12, 8, 4, 1
+static const int32_t g_strips[] = {SSW_STRIPS};
+static constexpr int NSTRIPS = sizeof g_strips / sizeof g_strips[0];
+
+// f(std::integral_constant<int, S>) for the S of the pack equal to strip
+template <int... S, class F>
+static void with_strip(int strip, F &&f)
+{
+    ((strip == S && (f(std::integral_constant<int, S>{}), true)) || ...);
+}
+
+// counts[i] pairs of strip bucket i lie in `order` bucket after bucket.
+// Bucket i runs on sides[i], forked from `stream` (through the event fork)
+// and joined back to it (through join): a bucket's time is its longest
+// pair's walk, so in turn they would add up.
+template <int W, int COLS>
+static int launch(const uint8_t *read, const int64_t *read_off,
+                  const uint8_t *ref, const int64_t *ref_off,
+                  const int32_t *term, const int32_t *order,
+                  const int32_t *counts, int n, int nref, int32_t *scratch,
+                  int32_t *out, int device, cudaStream_t stream,
+                  const cudaStream_t *sides, cudaEvent_t fork,
+                  cudaEvent_t join)
 {
     cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess)
-        return (int)err;
-    const int grid = (n + SMALL_THREADS - 1) / SMALL_THREADS;
-    ssw_forward_small_kernel<<<grid, SMALL_THREADS, 0, stream>>>(
-        read, read_off, ref, ref_off, term, order, n, H, E, rd, out);
-    return (int)cudaGetLastError();
+    if (err == cudaSuccess)
+        err = cudaEventRecord(fork, stream);
+    const int threads = W == 1 ? 32 * SMALL_WARPS : 32 * W;
+    int start = 0;
+    for (int i = 0; i < NSTRIPS && err == cudaSuccess; i++) {
+        const int cnt = counts[i];
+        if (cnt <= 0)
+            continue;
+        const int grid = W == 1 ? (cnt + SMALL_WARPS - 1) / SMALL_WARPS : cnt;
+        const int32_t *ord = order + start;
+        cudaStream_t side = sides[i];
+        err = cudaStreamWaitEvent(side, fork, 0);
+        if (err != cudaSuccess)
+            break;
+        with_strip<SSW_STRIPS>(g_strips[i], [&](auto s) {
+            ssw_strip_kernel<W, decltype(s)::value, COLS>
+                <<<grid, threads, 0, side>>>(read, read_off, ref, ref_off,
+                                             term, ord, cnt, nref, scratch,
+                                             out, n);
+        });
+        err = cudaGetLastError();
+        if (err == cudaSuccess)   // a wait takes the event's latest record
+            err = cudaEventRecord(join, side);
+        if (err == cudaSuccess)
+            err = cudaStreamWaitEvent(stream, join, 0);
+        start += cnt;
+    }
+    return err != cudaSuccess ? (int)err : start == n ? 0 : -1;
+}
+
+// The strip table: sets *table and returns its length.
+extern "C" int ribbit_ssw_strips(const int32_t **table)
+{
+    *table = g_strips;
+    return NSTRIPS;
+}
+
+// All pointers but counts and sides (host arrays, one entry per strip of
+// the table) are device pointers on `device`, and so are the streams and
+// the two events; the launches are ordered after `stream`'s earlier work
+// and `stream` after them, and nothing synchronises with the host.  Returns the first CUDA error, -1 if the
+// counts do not add up to n, else 0.
+extern "C" int ribbit_ssw_forward_small(
+    const uint8_t *read, const int64_t *read_off, const uint8_t *ref,
+    const int64_t *ref_off, const int32_t *term, const int32_t *order,
+    const int32_t *counts, int n, int nref, int32_t *scratch, int32_t *out,
+    int device, cudaStream_t stream, const cudaStream_t *sides,
+    cudaEvent_t fork, cudaEvent_t join)
+{
+    return launch<1, SMALL_COLS>(read, read_off, ref, ref_off, term, order,
+                                 counts, n, nref, scratch, out, device,
+                                 stream, sides, fork, join);
 }
 
 extern "C" int ribbit_ssw_forward_large(
     const uint8_t *read, const int64_t *read_off, const uint8_t *ref,
-    const int64_t *ref_off, const int32_t *term, const int32_t *order, int n,
-    int smem_rows, int32_t *Hg, int32_t *Eg, int32_t *out, int device,
-    cudaStream_t stream)
+    const int64_t *ref_off, const int32_t *term, const int32_t *order,
+    const int32_t *counts, int n, int nref, int32_t *scratch, int32_t *out,
+    int device, cudaStream_t stream, const cudaStream_t *sides,
+    cudaEvent_t fork, cudaEvent_t join)
 {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess)
-        return (int)err;
-    const size_t smem = (size_t)smem_rows * 2 * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute((const void *)ssw_forward_large_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess)
-            return (int)err;
-    }
-    ssw_forward_large_kernel<<<n, LARGE_THREADS, smem, stream>>>(
-        read, read_off, ref, ref_off, term, order, smem_rows, Hg, Eg, out,
-        n);
-    return (int)cudaGetLastError();
+    return launch<LARGE_WARPS, LARGE_COLS>(read, read_off, ref, ref_off,
+                                           term, order, counts, n, nref,
+                                           scratch, out, device, stream,
+                                           sides, fork, join);
 }

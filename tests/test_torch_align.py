@@ -8,7 +8,8 @@ the port's traceback copies they give ssw_align's alignments.  Integer DP scores
 tolerance is exact equality.
 
 The CUDA kernels themselves run only on a card; chip_smoke.py holds them
-against this plain version there, at the route's shapes."""
+against this plain version there, at the route's shapes.  Their host-side
+launch plan (align_kernels.launch_plan) is tested here."""
 
 import dataclasses
 
@@ -51,8 +52,9 @@ def _pairs(seed, n, max_read, max_ref):
     return reads, refs
 
 
-def _spec(reads, refs, terms=None):
-    """(score, end_ref, end_read, first_hit) by the numpy spec."""
+def _spec(reads, refs, terms=None, forward_pass=jax_align._forward_pass):
+    """(score, end_ref, end_read, first_hit) by a numpy spec: the JAX
+    package's, or the port's copy (align._forward_pass)."""
     out = []
     for i, (rd, rf) in enumerate(zip(reads, refs)):
         t = -1 if terms is None or terms[i] is None else terms[i]
@@ -61,7 +63,7 @@ def _spec(reads, refs, terms=None):
             # column's max is 0
             out.append((0, -1, -1, 0 if t == 0 and rf.shape[0] else -1))
             continue
-        best, er, bc, mc = jax_align._forward_pass(rd, rf, terminate=t)
+        best, er, bc, mc = forward_pass(rd, rf, terminate=t)
         erd = int(np.flatnonzero(bc == best)[0]) if er >= 0 else -1
         hit = np.flatnonzero(mc == t) if t >= 0 else []
         out.append((best, er, erd, int(hit[0]) if len(hit) else -1))
@@ -107,17 +109,62 @@ def oversized_pairs():
     return reads, refs
 
 
-@pytest.mark.parametrize("mode", ["forward", "terminate"])
-def test_plain_matches_pallas_k3_k4_and_spec(cpu_jax, small_pairs, mode):
+def _strip_edges():
+    """(reads, refs, terms) at the striped wavefront's edges, kept small for
+    interpret mode: rows around multiples of 8 and 32 (strips of one lane,
+    R < 32, R not a multiple of the lanes) against short (C < 32) and
+    longer refs, one column max attained in two strips (the smaller row
+    wins), and terminate targets hit at column 0, at the last column and
+    never."""
+    rng = np.random.default_rng(11)
+    reads, refs = [], []
+    for R in (8, 31, 32, 33, 63, 64, 65):
+        for C in (5, 20, 90):
+            unit = rng.integers(0, 4, int(rng.integers(2, 9))).astype(np.int8)
+            r = np.resize(unit, R).copy()
+            hit = rng.random(R) < 0.08
+            r[hit] = rng.integers(0, 5, int(hit.sum()))
+            reads.append(r)
+            refs.append(np.resize(unit, C).astype(np.int8))
+    x = rng.integers(0, 4, 40).astype(np.int8)
+    reads.append(np.concatenate([x, x]))
+    refs.append(x.copy())
+    terms = [None] * len(reads)
+    reads += [np.int8([2, 1, 0]), x.copy(), x.copy()]
+    refs += [np.int8([2, 3, 3, 3]), x.copy(), x.copy()]
+    terms += [2, 2 * len(x), 999]
+    return reads, refs, terms
+
+
+@pytest.mark.parametrize("batch,mode", [
+    pytest.param("random", "forward", id="forward"),
+    pytest.param("random", "terminate", id="terminate"),
+    pytest.param("strip edges", "forward", id="strip-edges-forward"),
+    pytest.param("strip edges", "terminate", id="strip-edges-terminate")])
+def test_plain_matches_pallas_k3_k4_and_spec(cpu_jax, small_pairs, batch,
+                                             mode):
     """Pairs of K3's class: the plain version equals K3 and K4 in
-    interpret mode and the numpy spec."""
+    interpret mode and the numpy spec; on the strip edges the terminate
+    mode also takes the edges' own targets."""
     from ribbit_tpu import align_pallas
     reads, refs = small_pairs
     terms = None
+    if batch == "strip edges":
+        reads, refs, targets = _strip_edges()
+        assert all(ak.fits(a.shape[0], b.shape[0])
+                   for a, b in zip(reads, refs))
     if mode == "terminate":
-        reads, refs, terms = _reverse(reads, refs, _spec(reads, refs))
+        rr, fr, terms = _reverse(reads, refs, _spec(reads, refs))
+        if batch == "strip edges":
+            keep = [i for i, t in enumerate(targets) if t is not None]
+            rr += [reads[i] for i in keep]
+            fr += [refs[i] for i in keep]
+            terms += [targets[i] for i in keep]
+        reads, refs = rr, fr
     got = _plain(reads, refs, terms)
     _assert_same(got, _spec(reads, refs, terms), "spec")
+    _assert_same(got, _spec(reads, refs, terms, align._forward_pass),
+                 "the port's spec")
     _assert_same(got, align_pallas_v3.batch_forward(
         reads, refs, terms, interpret=True), "K3")
     _assert_same(got, align_pallas.batch_forward(
@@ -186,6 +233,73 @@ def test_plain_edge_pairs():
     got = _plain(reads, refs, terms)
     _assert_same(got, _spec(reads, refs, terms), "terminate")
     assert got[3][5] == -1                       # 99 is never reached
+
+
+def _strip_bounds(R: int, lanes: int, strip: int):
+    """[(band, lane, first row, end row)] of every lane that owns rows of a
+    pair of R rows, as csrc/ssw_forward.cu maps them: band b, lane k owns
+    rows b*lanes*strip + k*strip up to strip rows, cut at R."""
+    out = []
+    band_rows = lanes * strip
+    for b in range(max(1, -(-R // band_rows))):
+        for k in range(lanes):
+            lo = b * band_rows + k * strip
+            if lo >= R:
+                break
+            out.append((b, k, lo, min(lo + strip, R)))
+    return out
+
+
+# lengths at the plan's edges: empty, 1, strips of one lane, the register
+# buckets' edges on 32 and 256 lanes, and bands of the largest bucket
+PLAN_ROWS = [0, 1, 8, 31, 32, 33, 64, 65, 192, 193, 512, 513, 602, 853,
+             1024, 1025, 4096, 4610, 8192, 8193, 17000, 29999]
+
+
+# strip tables (rows a lane, descending): the kernels' six
+# (csrc/ssw_forward.cu's SSW_STRIPS), and ten, five and one
+STRIP_TABLES = [(32, 20, 12, 8, 4, 1), (32, 24, 20, 16, 12, 8, 6, 4, 2, 1),
+                (32, 16, 8, 4, 1), (32,)]
+
+
+@pytest.mark.parametrize("strips", STRIP_TABLES,
+                         ids=lambda t: f"{len(t)}-strips")
+@pytest.mark.parametrize("lanes", [ak.SMALL_LANES, ak.LARGE_LANES])
+def test_launch_plan(lanes, strips):
+    """Every pair once, bucket after bucket in the table's order with the
+    counts given, cells descending within a bucket; each pair's strip is
+    the smallest bucket that holds its rows in one band, or the largest in
+    as many bands as it takes; the kernel's strips cover [0, R) once, none
+    longer than its bucket."""
+    rng = np.random.default_rng(lanes)
+    rlen = np.array(PLAN_ROWS + list(rng.integers(0, 3000, 200)), np.int64)
+    clen = rng.integers(0, 6000, len(rlen)).astype(np.int64)
+    plan = ak.launch_plan(rlen, clen, lanes, strips)
+    order = np.argsort(plan.key, kind="stable")
+    assert sorted(order.tolist()) == list(range(len(rlen)))
+    assert plan.counts.sum() == len(rlen)
+    assert len(plan.counts) == len(strips)
+    start = 0
+    for s, cnt in zip(strips, plan.counts):
+        group = order[start:start + cnt]
+        assert (plan.strip[group] == s).all()
+        cells = rlen[group] * clen[group]
+        assert (np.diff(cells) <= 0).all()
+        start += cnt
+    for R, s, b in zip(rlen, plan.strip, plan.bands):
+        rows = max(int(R), 1)
+        smaller = [t for t in strips if t < s]
+        if b == 1:
+            assert rows <= lanes * s
+            assert not smaller or rows > lanes * max(smaller)
+        else:
+            assert s == strips[0]
+            assert lanes * s * (b - 1) < rows <= lanes * s * b
+        bounds = _strip_bounds(int(R), lanes, int(s))
+        covered = [j for _, _, lo, hi in bounds for j in range(lo, hi)]
+        assert covered == list(range(int(R)))
+        assert all(0 < hi - lo <= s and k < lanes for _, k, lo, hi in bounds)
+        assert max((bb for bb, _, _, _ in bounds), default=0) < b
 
 
 def test_fits_matches_pallas_v3():
