@@ -9,8 +9,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      source, all at once) and of the C core from csrc/;
   3. the event kernels against their plain PyTorch versions on the card,
      bit-equal, on one full 8 Mi-bp segment plus halo of a simulated
-     chromosome and on edge lengths, at two motif configurations; times of
-     both at the segment shape (CUDA events, after a warm-up);
+     chromosome, on edge lengths (the event kernel's tile edges among
+     them), a poly-A case with N at word edges and an all-N one, at three
+     motif configurations (the default, -m 4 -M 37 and -M 300); times of
+     both at the segment shape (CUDA events, after a warm-up), their share
+     of the bound and their rate in GB/s;
   4. the event-extraction path end to end through the port's CLI
      (--backend gpu) on a ~47 Mb five-contig genome made with the port's
      sim: launch counts, event streams against the C generation
@@ -74,7 +77,11 @@ from ribbit_tpu_torch.bench_roofline import bound, cuda_ms
 
 CHR21_BP = 46_709_983          # hg38 chr21
 BP_PER_LOCUS = 2660            # bench.py's chromosome recipe
-EDGE_LENGTHS = (1, 7, 8, 101, 102, 103, 4097)
+# lengths at word edges, at the edges of a warp's 32 words in the event
+# kernel and at one and two of its tiles (256 words), +-1
+EDGE_LENGTHS = (1, 7, 8, 101, 102, 103, 1023, 1024, 1025, 4097, 8191, 8192,
+                8193, 16383, 16384, 16385)
+POLY_A_BP = 12_000             # across the event kernel's first tile edge
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 SSW_REPS = 5
@@ -85,7 +92,9 @@ CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
 BAND_EDGE = 8193               # one row past a band of the large kernel
 LONG_READ = 29_999             # four bands, the last of 5,423 rows
 SOURCES = ("scan_events", "ssw_forward", "alu_probe", "scan_dense")
-BIG_M = 300                    # -M past the Pallas eq/sum8 kernel's cap
+# -M past the Pallas eq/sum8 kernel's cap; the event kernel's shifts then
+# reach ten words ahead
+BIG_M = 300
 
 
 def log(*a):
@@ -130,9 +139,33 @@ def phase_build():
         cuda_build.load(stem)
 
 
+def poly_a_n(L: int = POLY_A_BP, seed: int = 0) -> str:
+    """Random stretches between poly-A runs of 1-140 bp (5% substitutions),
+    with N at the last and the first position of words 4m and one N at
+    offset m % 32 of word 4m + 2: the 8-windows of eq hold every count
+    from 0 to 8, and N-free windows begin and end at every offset of a
+    word (tests/test_torch_scan_events.py checks both)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, L)
+    p = 0
+    while p < L:
+        p += int(rng.integers(0, 48))
+        run = codes[p:p + int(rng.integers(1, 141))]
+        run[:] = np.where(rng.random(len(run)) < 0.05,
+                          rng.integers(1, 4, len(run)), 0)
+        p += len(run)
+    bases = np.frombuffer(b"ACGT", np.uint8)[codes]
+    words = np.arange(L // 32)
+    bases[32 * words[1::4] - 1] = ord("N")
+    bases[32 * words[0::4]] = ord("N")
+    bases[32 * words[2::4] + np.arange(len(words[2::4])) % 32] = ord("N")
+    return bases.tobytes().decode()
+
+
 def kernel_cases(genome_seq: str):
     """(name, sequence): one full segment plus halo of the chromosome,
-    random sequences at the edge lengths (10% N) and an all-N one."""
+    random sequences at the edge lengths (10% N), the poly-A case and an
+    all-N one."""
     from ribbit_tpu_torch.eventstitch import HALO
 
     seg_len = (8 << 20) + 2 * HALO
@@ -143,6 +176,7 @@ def kernel_cases(genome_seq: str):
         bases = np.frombuffer(b"ACGT", np.uint8)[codes]
         bases[rng.random(L) < 0.1] = ord("N")
         cases.append(("random", bases.tobytes().decode()))
+    cases.append(("poly-A/N", poly_a_n()))
     cases.append(("all-N", "N" * 5000))
     return cases
 
@@ -186,7 +220,8 @@ def phase_kernels(se, cases, cfgs, dev, rate):
                     cuda_ms(lambda: se.flagwords_ref(c, n, a_k, cfg),
                             PLAIN_REPS))
                 for k in times:
-                    times[k] += bound(*br.scan_work(k, L, cfg), rate)
+                    work = br.scan_work(k, L, cfg)
+                    times[k] += bound(*work, rate) + (work[0],)
                 # the rest of one segment's extraction, on the host clock
                 # (second of two runs: the first pays page faults)
                 for _ in range(2):
@@ -202,9 +237,10 @@ def phase_kernels(se, cases, cfgs, dev, rate):
                     f"({w_host.nbytes / d2h / 1e9:.2f} GB/s), C decode "
                     f"{dec * 1e3:.1f} ms")
             del a_k, a_p, w_k, w_p
-    for k, (ms, pms, bms, by) in times.items():
+    for k, (ms, pms, bms, by, nbytes) in times.items():
         log(f"  {k} at the segment shape: kernel {ms:.3f} ms, plain "
-            f"{pms:.3f} ms ({pms / ms:.1f}x), bound {bms:.4f} ms by {by}")
+            f"{pms:.3f} ms ({pms / ms:.1f}x), bound {bms:.4f} ms by {by} "
+            f"({bms / ms:.1%} of it), {nbytes / ms / 1e6:.1f} GB/s")
     return err, times
 
 
@@ -988,7 +1024,8 @@ def main() -> int:
     log("[3] event kernels against their plain versions on the card "
         "(bit-equal)")
     cases = kernel_cases(chrom)
-    err, times = phase_kernels(se, cases, cfgs, dev, rate)
+    err, times = phase_kernels(
+        se, cases, cfgs + (RibbitConfig.create(max_motif=BIG_M),), dev, rate)
 
     log("[4] event extraction end to end through the port's CLI, "
         "--backend gpu")

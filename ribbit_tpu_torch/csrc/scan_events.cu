@@ -37,15 +37,30 @@
 //
 // What bounds them on this card: the event pass writes 52 B/bp (13 planes
 // x 4 B) and that plane then crosses PCIe to the host, so the output bytes
-// bound the pass; compute is about ns x (an 8-bit window popcount twice,
-// four neighbour ORs) integer ops per bp.  The dense pass writes 4 B per
-// motif row per bp (396 B/bp at the default config) against 14.75 B/bp
-// read, so it too is bound by its output bytes.  The design keeps every
-// per-position quantity as a bit in a 32-bit word: eq is built once per
-// block into shared memory as bit-words, run searches use __clz / __ffs
-// over whole words, and an 8-position window is one __funnelshift_r plus
-// __popc.  Each output word is written once, coalesced; the dense pass
-// writes four positions of a plane per 32-bit store.
+// bound the pass (0.167 ms at an 8 Mi-bp segment); compute is about ns x
+// (an 8-bit window popcount twice, four neighbour ORs) integer ops per bp.
+// The dense pass writes 4 B per motif row per bp (396 B/bp at the default
+// config) against 14.75 B/bp read, so it too is bound by its output bytes.
+// Each keeps every per-position quantity as a bit in a 32-bit word.  The
+// anchor and dense passes build eq once per block into shared memory as
+// bit-words (a byte loop, eq_word), search runs with __clz / __ffs over
+// whole words, and take an 8-position window as one __funnelshift_r plus
+// __popc; the dense pass writes four positions of a plane per 32-bit store.
+//
+// The event pass works on 32 positions at once, so that its integer work
+// falls towards its 52 B/bp of stores.  A block builds the code's two
+// bit-planes and the N words of its tile once by __ballot_sync (codes are
+// 0-3, N reads as 0, so equal codes <=> equal bits in both planes) and
+// reuses them for every plane; a thread then takes one word (32 positions)
+// of each plane: eq of shift s is ~((lo ^ lo>>s) | (hi ^ hi>>s)), two funnel
+// shifts over words; anchors are read by consecutive threads at consecutive
+// words; q6 and q7 of 32 windows come from bit-sliced counters of the zeros
+// in the 8 shifted copies of the word; one 32 x 32 bit transpose in
+// registers turns the 24 bit-rows (q6, q7, pm of 8 rows) into 32 int32, and
+// a staging tile in shared memory lets a warp store each word as 128
+// contiguous bytes.  On an H100 that reaches about two thirds of the byte
+// bound (PERF.md); a warp-wide version (a lane a bit-row, the transpose by
+// __shfl_xor_sync) ran half as fast: half its lanes counted no window.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,86 +171,169 @@ __global__ void anchor_planes_kernel(const uint8_t *__restrict__ code, int L,
     }
 }
 
-// Grid: (tiles of TW * 32 positions, output planes).  Shared memory: the
-// code tile over words [w0, w0 + TW + 1) plus s_max bytes, the n_mask
-// tile, the N bit-words (positions >= L set), and eq and overlay
-// bit-words of the plane's 8 rows.  The extra word serves windows that
-// start in the tile's last word.
-__global__ void event_words_kernel(const uint8_t *__restrict__ code,
-                                   const uint8_t *__restrict__ nmask,
-                                   const u32 *__restrict__ anch, int L,
-                                   int min_shift, int ns, int W,
-                                   int32_t *__restrict__ out)
+#define EV_T 256       // event pass: threads a block = tile words, one each
+#define EV_WARPS (EV_T / 32)
+#define EV_PU 4        // words a warp has in flight while building the planes
+#define AROWS (OUT_ROWS + 4)   // anchor rows one plane's overlay reads
+
+// The code's two bit-planes and the N words over n words from global word
+// w0, into shared memory: bit j of lo[i] / hi[i] is bit 0 / 1 of the code
+// at position 32 (w0 + i) + j (0 past L), bit j of nw[i] says N there (1
+// past L).  Codes are 0-3 and N is 0, so two positions hold equal codes iff
+// both planes agree there.  Each warp of the block takes every nwarps-th
+// word, one position a lane and one __ballot_sync per word; no barrier.
+__device__ __forceinline__ void plane_words(const uint8_t *__restrict__ code,
+                                            const uint8_t *__restrict__ nmask,
+                                            int L, int w0, int n, u32 *lo,
+                                            u32 *hi, u32 *nw)
 {
-    extern __shared__ unsigned char smem[];
-    const int EW = TW + 1;
-    const int s_max = min_shift + ns - 1;
-    const int ncode = EW * 32 + s_max;
-    uint8_t *sc = smem;
-    uint8_t *sn = smem + ((ncode + 15) & ~15);
-    u32 *nw = (u32 *)(sn + EW * 32);
-    u32 *eqw = nw + EW;
-    u32 *ovw = eqw + OUT_ROWS * EW;
-
-    const int w0 = blockIdx.x * TW;
-    const int g = blockIdx.y;
-    const int pbase = w0 * 32;
-
-    for (int i = threadIdx.x; i < ncode; i += THREADS) {
-        int p = pbase + i;
-        sc[i] = p < L ? code[p] : 0;
-        if (i < EW * 32)
-            sn[i] = p < L ? nmask[p] : 1;
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < EW; i += THREADS) {
-        u32 w = 0;
-        for (int j = 0; j < 32; j++)
-            w |= (u32)(sn[i * 32 + j] != 0) << j;
-        nw[i] = w;
-    }
-    for (int i = threadIdx.x; i < OUT_ROWS * EW; i += THREADS) {
-        int r = i % OUT_ROWS, wl = i / OUT_ROWS;
-        int row = g * OUT_ROWS + r, gw = w0 + wl;
-        u32 eq = 0, ov = 0;
-        if (row < ns) {
-            int s = min_shift + row;
-            eq = eq_word(sc, wl * 32, pbase + wl * 32, s, L);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int i4 = warp; i4 < n; i4 += EV_PU * nwarps) {
+        u32 c[EV_PU];
+        bool nb[EV_PU];
+#pragma unroll
+        for (int u = 0; u < EV_PU; u++) {
+            int i = i4 + u * nwarps;
+            long long p = (long long)(w0 + i) * 32 + lane;
+            bool in = i < n && p < L;
+            c[u] = in ? code[p] : 0u;
+            nb[u] = !in || nmask[p] != 0;
         }
-        if (gw < W) {
-            for (int d = -2; d <= 2; d++) {
-                int nr = row + d;
-                if (d != 0 && nr >= 0 && nr < ns)
-                    ov |= anch[(size_t)nr * W + gw];
+#pragma unroll
+        for (int u = 0; u < EV_PU; u++) {
+            int i = i4 + u * nwarps;
+            u32 b0 = __ballot_sync(0xffffffffu, c[u] & 1u);
+            u32 b1 = __ballot_sync(0xffffffffu, c[u] & 2u);
+            u32 bn = __ballot_sync(0xffffffffu, nb[u]);
+            if (lane == 0 && i < n) {
+                lo[i] = b0;
+                hi[i] = b1;
+                nw[i] = bn;
             }
         }
-        eqw[r * EW + wl] = eq;
-        ovw[r * EW + wl] = eq | ov;
     }
+}
+
+// eq bit-word of shift s = 32 q + b at a word whose planes are l and h: la,
+// lb (ha, hb) are the planes of words q and q + 1 further on.  Bit j is set
+// iff the codes at p and p + s are equal, p the position of bit j.
+__device__ __forceinline__ u32 eq_planes(u32 l, u32 h, u32 la, u32 lb,
+                                         u32 ha, u32 hb, int b)
+{
+    return ~((l ^ __funnelshift_r(la, lb, b))
+             | (h ^ __funnelshift_r(ha, hb, b)));
+}
+
+// Bit j: at most one (one = ~0) or two (one = 0) zeros among bits j..j+7 of
+// the 64-bit x1:x0; bit-sliced counters of the zeros, saturating at three.
+__device__ __forceinline__ u32 few_zeros(u32 x0, u32 x1, u32 one)
+{
+    u32 two = 0, three = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+        u32 z = ~__funnelshift_r(x0, x1, j);
+        three |= two & z;
+        two |= one & z;
+        one |= z;
+    }
+    return ~three;
+}
+
+// In-register 32 x 32 bit transpose: afterwards bit b of A[j] is bit j of
+// the old A[b].  Each stage swaps the off-diagonal m x m blocks of every
+// 2m x 2m block; rows known to be 0 fold away.
+__device__ __forceinline__ void transpose32(u32 (&A)[32])
+{
+#pragma unroll
+    for (int t = 0; t < 5; t++) {
+        const int m = 16 >> t;
+        const u32 lo = 0xffffffffu / ((1u << m) + 1u);   // 0x0000ffff ...
+#pragma unroll
+        for (int k = 0; k < 32; k++) {
+            if (k & m)
+                continue;
+            u32 x = ((A[k] >> m) ^ A[k + m]) & lo;
+            A[k + m] ^= x;
+            A[k] ^= x << m;
+        }
+    }
+}
+
+// Grid: tiles of EV_T words (32 positions each); a block writes every plane
+// of its tile, a thread one word of each plane.  Shared memory: the code's
+// planes and the N words of the tile and its right halo (built once), then
+// a [32][33] staging tile per warp.  Per plane, a thread takes its word w
+// and w + 1 (for the 8-windows that start in w): eq of the plane's 8 rows
+// from the planes, the overlay with anchor rows g*8 - 2 .. g*8 + 9 (loads
+// of consecutive words by consecutive threads), the 24 bit-rows q6, q7, pm,
+// one transpose to 32 int32, and through the warp's staging tile 32 stores
+// of 128 contiguous bytes.
+__global__ void __launch_bounds__(EV_T) event_words_kernel(
+    const uint8_t *__restrict__ code, const uint8_t *__restrict__ nmask,
+    const u32 *__restrict__ anch, int L, int min_shift, int ns, int ngroups,
+    int W, int32_t *__restrict__ out)
+{
+    extern __shared__ u32 sw[];
+    const int s_max = min_shift + ns - 1;
+    const int EW = EV_T + (s_max + 31) / 32 + 2;  // the last eq reads word
+    u32 *lo = sw, *hi = lo + EW, *nw = hi + EW;   // EV_T + s_max / 32 + 1
+    u32 *st = nw + EW;                            // [EV_WARPS][32][33]
+
+    const int w0 = blockIdx.x * EV_T;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    plane_words(code, nmask, L, w0, EW, lo, hi, nw);
     __syncthreads();
 
-    for (int pl = threadIdx.x; pl < TW * 32; pl += THREADS) {
-        int p = pbase + pl;
-        if (p >= L)
-            break;
-        int wl = pl >> 5, sh = pl & 31;
-        u32 n8 = __funnelshift_r(nw[wl], nw[wl + 1], sh) & 0xffu;
-        bool nfree = n8 == 0;
-        u32 word = 0;
+    const int i = threadIdx.x, w = w0 + i;
+    const u32 L0 = lo[i], L1 = lo[i + 1], H0 = hi[i], H1 = hi[i + 1];
+    u32 nany = nw[i];
 #pragma unroll
-        for (int r = 0; r < OUT_ROWS; r++) {
-            u32 e8 = __funnelshift_r(eqw[r * EW + wl], eqw[r * EW + wl + 1],
-                                     sh) & 0xffu;
-            u32 o8 = __funnelshift_r(ovw[r * EW + wl], ovw[r * EW + wl + 1],
-                                     sh) & 0xffu;
-            u32 q6 = nfree && __popc(o8) >= 6;
-            u32 q7 = nfree && __popc(e8) >= 7;
-            u32 pm = (e8 & 1u) & ~n8;
-            word |= (q6 << r) | (q7 << (OUT_ROWS + r))
-                    | ((pm & 1u) << (2 * OUT_ROWS + r));
+    for (int j = 1; j < 8; j++)
+        nany |= __funnelshift_r(nw[i], nw[i + 1], j);
+    const u32 nfree = ~nany, notn = ~nw[i];
+    u32 *sg = st + warp * (32 * 33);
+    const int wb = w0 + warp * 32;                // the warp's first word
+    for (int g = 0; g < ngroups; g++) {
+        u32 A0[AROWS], A1[AROWS];                 // anchors at w, w + 1
+#pragma unroll
+        for (int rr = 0; rr < AROWS; rr++) {
+            int row = g * OUT_ROWS - 2 + rr;
+            bool ok = row >= 0 && row < ns;
+            A0[rr] = ok && w < W ? anch[(size_t)row * W + w] : 0u;
+            A1[rr] = ok && w + 1 < W ? anch[(size_t)row * W + w + 1] : 0u;
         }
-        out[(size_t)g * L + p] = (int32_t)word;
+        u32 R[32];
+#pragma unroll
+        for (int k = 0; k < OUT_ROWS; k++) {
+            const int row = g * OUT_ROWS + k;
+            u32 e0 = 0, e1 = 0;                   // rows past ns: eq = 0
+            if (row < ns) {                       // uniform in the block
+                const int s = min_shift + row, q = s >> 5, b = s & 31;
+                u32 la = lo[i + q], lb = lo[i + q + 1], lc = lo[i + q + 2];
+                u32 ha = hi[i + q], hb = hi[i + q + 1], hc = hi[i + q + 2];
+                e0 = eq_planes(L0, H0, la, lb, ha, hb, b);
+                e1 = eq_planes(L1, H1, lb, lc, hb, hc, b);
+            }
+            u32 o0 = e0 | A0[k] | A0[k + 1] | A0[k + 3] | A0[k + 4];
+            u32 o1 = e1 | A1[k] | A1[k + 1] | A1[k + 3] | A1[k + 4];
+            R[k] = few_zeros(o0, o1, 0u) & nfree;                // q6
+            R[OUT_ROWS + k] = few_zeros(e0, e1, ~0u) & nfree;   // q7
+            R[2 * OUT_ROWS + k] = e0 & notn;                    // pm
+            R[3 * OUT_ROWS + k] = 0u;
+        }
+        transpose32(R);                           // R[j]: position 32 w + j
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < 32; j++)
+            sg[lane * 33 + j] = R[j];
+        __syncwarp();
+        int32_t *o = out + (size_t)g * L + (size_t)wb * 32 + lane;
+        const int rem = L - wb * 32 - lane;       // > 32 j: o[32 j] in the row
+#pragma unroll 8
+        for (int j = 0; j < 32; j++)
+            if (rem > 32 * j)
+                o[32 * j] = (int32_t)sg[j * 33 + lane];
     }
 }
 
@@ -411,16 +509,13 @@ extern "C" int ribbit_event_words(const uint8_t *code, const uint8_t *nmask,
         return (int)err;
     const int s_max = min_shift + ns - 1;
     const int W = (L + 31) / 32;
-    const int EW = TW + 1;
-    const size_t smem = (size_t)((EW * 32 + s_max + 15) & ~15)
-                        + (size_t)EW * 32
-                        + (size_t)(1 + 2 * OUT_ROWS) * EW * sizeof(u32);
+    const int EW = EV_T + (s_max + 31) / 32 + 2;
+    const size_t smem = (size_t)(3 * EW + EV_WARPS * 32 * 33) * sizeof(u32);
     int rc = launch_smem((const void *)event_words_kernel, smem);
     if (rc)
         return rc;
-    dim3 grid((L + TW * 32 - 1) / (TW * 32), ngroups);
-    event_words_kernel<<<grid, THREADS, smem, stream>>>(
-        code, nmask, anch, L, min_shift, ns, W, out);
+    event_words_kernel<<<(W + EV_T - 1) / EV_T, EV_T, smem, stream>>>(
+        code, nmask, anch, L, min_shift, ns, ngroups, W, out);
     return (int)cudaGetLastError();
 }
 

@@ -232,7 +232,12 @@ def event_words(code: torch.Tensor, n_mask: torch.Tensor,
                 anchors: torch.Tensor, cfg: RibbitConfig) -> torch.Tensor:
     """Event bitmap words int32 [ceil(nsp/8), L] (the C decoder's layout)
     of uint8 code and n_mask [L] and anchor_planes' output.  Kernel:
-    ribbit_event_words."""
+    ribbit_event_words.
+
+    The code holds encode's values 0-3 with N encoded as 0: the kernel
+    compares codes through their two low bit-planes, so a value above 3
+    would match its low bits.  That is the caller's contract and is not
+    checked here (a check would synchronise with the card)."""
     L = code.shape[0]
     if L < 1 or L >= 2**31 - 64:
         raise ValueError(f"event_words: length {L} out of range")

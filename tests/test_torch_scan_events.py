@@ -17,13 +17,13 @@ from ribbit_tpu.encode import encode
 from ribbit_tpu.sim import simulate
 
 import ribbit_tpu_torch.scan_events as se
+from chip_smoke import EDGE_LENGTHS, poly_a_n
 
 torch.set_num_threads(2)
 
 # the two configurations (and inputs) of tests/test_events_pallas.py
 CASES = {"default": (dict(), 7, 0.3),
          "m4-M37": (dict(min_motif=4, max_motif=37), 8, 0.5)}
-EDGE_LENGTHS = (1, 7, 8, 101, 102, 103, 4097)
 
 
 def _cfg(name):
@@ -141,18 +141,24 @@ def test_streams_match_scan_events_tpu(cpu_jax, name):
 
 
 def _edge_input(L, all_n=False):
-    rng = np.random.default_rng(L)
     if all_n:
         return encode("N" * L)
+    if L == "poly-A/N":
+        return encode(poly_a_n())
+    rng = np.random.default_rng(L)
     bases = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, L)].copy()
     bases[rng.random(L) < 0.1] = ord("N")
     return encode(bases.tobytes().decode())
 
 
 @pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("L", EDGE_LENGTHS + ("all-N",))
+@pytest.mark.parametrize("L", EDGE_LENGTHS + ("poly-A/N", "all-N"))
 def test_edge_lengths_match_numpy_spec(name, L):
+    """The plain event words against the numpy spec at word edges, at the
+    CUDA kernel's warp and tile edges, on poly-A runs with N at word edges
+    and on all N; chip_smoke.py holds the kernel on the same inputs."""
     cfg = _cfg(name)
+    case = L
     code, n_mask = _edge_input(300, all_n=True) if L == "all-N" \
         else _edge_input(L)
     L = code.shape[0]
@@ -178,6 +184,14 @@ def test_edge_lengths_match_numpy_spec(name, L):
         assert not field[1][nw:].any() and not field[0][nw:].any()
         if cfg.min_motif <= cfg.min_shift + r <= cfg.max_motif:
             assert np.array_equal(field[0][:nw], q6[r])            # q6
+    if case == "poly-A/N":
+        # the case holds what it is for: every 8-window count of eq, and
+        # N-free windows that begin and end at every offset of a word
+        win = sum(np.pad(eq, ((0, 0), (0, 7)))[:, k:k + L] for k in range(8))
+        assert set(np.unique(win)) == set(range(9))
+        edges = np.diff(qual(np.ones_like(eq[:1]), 8)[0].astype(np.int8))
+        for d in (1, -1):
+            assert len(set((np.flatnonzero(edges == d) + 1) % 32)) == 32
 
 
 def test_segmented_extraction_equals_whole_contig():
