@@ -10,10 +10,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
   3. the event kernels against their plain PyTorch versions on the card,
      bit-equal, on one full 8 Mi-bp segment plus halo of a simulated
      chromosome, on edge lengths (the event kernel's tile edges among
-     them), a poly-A case with N at word edges and an all-N one, at three
-     motif configurations (the default, -m 4 -M 37 and -M 300); times of
-     both at the segment shape (CUDA events, after a warm-up), their share
-     of the bound and their rate in GB/s;
+     them), a poly-A case with N at word edges, an all-N one and planted
+     eq runs at the anchor limits (anchor_edge_plan), at three motif
+     configurations (the default, -m 4 -M 37 and -M 300); times of both
+     at the segment shape (CUDA events, after a warm-up), their share of
+     the bound and their rate in GB/s, and the anchor kernel's time at
+     each configuration;
   4. the event-extraction path end to end through the port's CLI
      (--backend gpu) on a ~47 Mb five-contig genome made with the port's
      sim: launch counts, event streams against the C generation
@@ -82,6 +84,10 @@ BP_PER_LOCUS = 2660            # bench.py's chromosome recipe
 EDGE_LENGTHS = (1, 7, 8, 101, 102, 103, 1023, 1024, 1025, 4097, 8191, 8192,
                 8193, 16383, 16384, 16385)
 POLY_A_BP = 12_000             # across the event kernel's first tile edge
+# shifts of the planted anchor runs, and the anchor kernel's tile (512
+# words of 32 positions)
+ANCHOR_UNITS = (2, 3, 16, 17, 50, 102)
+ANCHOR_TILE = 512 * 32
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 SSW_REPS = 5
@@ -162,10 +168,64 @@ def poly_a_n(L: int = POLY_A_BP, seed: int = 0) -> str:
     return bases.tobytes().decode()
 
 
+def anchor_run_lengths(m: int):
+    """Lengths of the eq runs planted on shift m: too short, the shortest
+    and the longest anchor, and the first two that are too long."""
+    return tuple(dict.fromkeys((2, 3, 2 * m - 1, 2 * m, 2 * m + 1)))
+
+
+def _plant(codes, rng, a: int, m: int, k: int):
+    """A perfect tandem repeat of a random unit of m bases over positions
+    [a, a + m + k) (cut at the end of codes, which reads as 0 past it),
+    with the bases around it chosen so that eq of shift m holds exactly
+    the run [a, a + k).  Returns (m, a, k)."""
+    L = len(codes)
+    unit = rng.integers(0, 4, m)
+    if a + m + k > L:                     # the run's last compare reads 0
+        unit[(L - a) % m] = 0
+    end = min(a + m + k, L)
+    codes[a:end] = unit[np.arange(end - a) % m]
+    if a > 0:                             # eq[a - 1] = 0
+        codes[a - 1] = (unit[(m - 1) % m] + 1) % 4
+    if a + m + k < L:                     # eq[a + k] = 0
+        codes[a + m + k] = (unit[k % m] + 1) % 4
+    return m, a, k
+
+
+def anchor_edge_plan(seed: int = 0):
+    """(name, sequence, runs): eq runs of exactly k on shift m (runs as
+    (m, start, k)) for m in ANCHOR_UNITS and k in anchor_run_lengths(m).
+    One sequence straddles with every (m, k) a tile edge of the anchor
+    kernel (16,384 positions), an edge of a 64-word tile (2,048) and a word
+    edge; one short sequence per (m, k) starts with a run of k at p = 0
+    and ends with a run of 2m - 1 (the first three) or 3 whose exclusive
+    end is L - m - 1, L - m and L - m + 1 in turn."""
+    rng = np.random.default_rng(seed)
+    pairs = [(m, k) for m in ANCHOR_UNITS for k in anchor_run_lengths(m)]
+    codes = rng.integers(0, 4, ANCHOR_TILE * (len(pairs) + 1) + 512)
+    runs = []
+    for j, (m, k) in enumerate(pairs):
+        base = ANCHOR_TILE * (j + 1)
+        for edge in (base, base + 2048, base + 5120):
+            runs.append(_plant(codes, rng, edge - k // 2, m, k))
+    plan = [("anchor edges", codes, runs)]
+    for m in ANCHOR_UNITS:
+        for c, k in enumerate(anchor_run_lengths(m)):
+            L = 8 * m + 256
+            codes = rng.integers(0, 4, L)
+            tail = 2 * m - 1 if c < 3 else 3
+            end = L - m - 1 + c % 3
+            plan.append((f"anchor ends m={m} k0={k}", codes,
+                         [_plant(codes, rng, 0, m, k),
+                          _plant(codes, rng, end - tail, m, tail)]))
+    return [(name, np.frombuffer(b"ACGT", np.uint8)[codes].tobytes()
+             .decode(), runs) for name, codes, runs in plan]
+
+
 def kernel_cases(genome_seq: str):
     """(name, sequence): one full segment plus halo of the chromosome,
-    random sequences at the edge lengths (10% N), the poly-A case and an
-    all-N one."""
+    random sequences at the edge lengths (10% N), the poly-A case, an
+    all-N one and the planted anchor runs (anchor_edge_plan)."""
     from ribbit_tpu_torch.eventstitch import HALO
 
     seg_len = (8 << 20) + 2 * HALO
@@ -178,6 +238,7 @@ def kernel_cases(genome_seq: str):
         cases.append(("random", bases.tobytes().decode()))
     cases.append(("poly-A/N", poly_a_n()))
     cases.append(("all-N", "N" * 5000))
+    cases += [(name, seq) for name, seq, _ in anchor_edge_plan()]
     return cases
 
 
@@ -187,7 +248,7 @@ def phase_kernels(se, cases, cfgs, dev, rate):
     from ribbit_tpu_torch.encode import encode
 
     err = {"anchor_planes": 0, "event_words": 0}
-    times = {}
+    times, k1_ms = {}, {}
     for cfg in cfgs:
         tag = f"m{cfg.min_motif}-M{cfg.max_motif}"
         for name, seq in cases:
@@ -208,10 +269,14 @@ def phase_kernels(se, cases, cfgs, dev, rate):
             if e_a or e_w:
                 raise AssertionError(f"kernel != plain version ({tag} "
                                      f"{name}: {e_a}, {e_w})")
+            if name == "segment":
+                # the anchor kernel's halo grows with the largest shift
+                k1_ms[tag] = cuda_ms(lambda: se.anchor_planes(c, cfg),
+                                     KERNEL_REPS)
             if name == "segment" and cfg is cfgs[0]:
                 L = len(seq)
                 times["anchor_planes"] = (
-                    cuda_ms(lambda: se.anchor_planes(c, cfg), KERNEL_REPS),
+                    k1_ms[tag],
                     cuda_ms(lambda: se.anchor_planes_ref(c, cfg),
                             PLAIN_REPS))
                 times["event_words"] = (
@@ -238,9 +303,11 @@ def phase_kernels(se, cases, cfgs, dev, rate):
                     f"{dec * 1e3:.1f} ms")
             del a_k, a_p, w_k, w_p
     for k, (ms, pms, bms, by, nbytes) in times.items():
-        log(f"  {k} at the segment shape: kernel {ms:.3f} ms, plain "
+        log(f"  {k} at the segment shape: kernel {ms:.4f} ms, plain "
             f"{pms:.3f} ms ({pms / ms:.1f}x), bound {bms:.4f} ms by {by} "
             f"({bms / ms:.1%} of it), {nbytes / ms / 1e6:.1f} GB/s")
+    log("  anchor_planes at the segment shape by configuration: "
+        + ", ".join(f"{tag} {ms:.4f} ms" for tag, ms in k1_ms.items()))
     return err, times
 
 

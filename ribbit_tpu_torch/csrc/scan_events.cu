@@ -41,11 +41,29 @@
 // (an 8-bit window popcount twice, four neighbour ORs) integer ops per bp.
 // The dense pass writes 4 B per motif row per bp (396 B/bp at the default
 // config) against 14.75 B/bp read, so it too is bound by its output bytes.
-// Each keeps every per-position quantity as a bit in a 32-bit word.  The
-// anchor and dense passes build eq once per block into shared memory as
-// bit-words (a byte loop, eq_word), search runs with __clz / __ffs over
-// whole words, and take an 8-position window as one __funnelshift_r plus
-// __popc; the dense pass writes four positions of a plane per 32-bit store.
+// The anchor pass writes 12.75 B/bp (0.032 ms at the segment), but its
+// run test issues over a hundred instructions per word and row, so the
+// instruction issue, not its bytes, sets its pace (PERF.md).  Each pass
+// keeps every per-position quantity as a bit in a 32-bit word.  The dense
+// pass builds eq once per block into shared memory as bit-words (a byte
+// loop, eq_word), searches runs with __clz / __ffs over whole words, takes
+// an 8-position window as one __funnelshift_r plus __popc and writes four
+// positions of a plane per 32-bit store.
+//
+// The anchor pass takes a tile of 512 words (16,384 positions) of every
+// shift row in one block.  The block builds the code's two bit-planes over
+// the tile and K + 1 words on each side (K = ceil(2 s_max / 32); 8 words,
+// 3% of the tile, at the default config) once by __ballot_sync
+// (plane_words, below); a run that reaches K words past a word is at least
+// 2s long and never an anchor.  A thread then owns one word of each row,
+// row after row with no barrier: the eq word of its word (two funnel
+// shifts over the planes, eq_planes, masked before position 0 and from
+// L - s on), its neighbours' from the lanes beside it by __shfl_sync
+// (lanes 0 and 31 build the word past the warp's edge), the runs through
+// bit 0 and bit 31 measured by __clz of the neighbours (walking on, eq word
+// by eq word, only past a neighbour of all ones), the runs inside the word
+// tested bit-parallel, and consecutive threads store consecutive words of
+// a row.
 //
 // The event pass works on 32 positions at once, so that its integer work
 // falls towards its 52 B/bp of stores.  A block builds the code's two
@@ -67,9 +85,8 @@
 
 typedef uint32_t u32;
 
-#define THREADS 256
-#define TW 64          // bit-words (of 32 positions) per block tile
-#define RA 8           // shift rows per block in the anchor pass
+#define THREADS 256    // dense pass: threads a block
+#define TW 64          // dense pass: bit-words (of 32 positions) a block tile
 #define OUT_ROWS 8     // shift rows per output plane in the event pass
 
 // eq bit-word for word-local offset lb (byte offset of the word's first
@@ -88,89 +105,6 @@ __device__ __forceinline__ u32 eq_word(const uint8_t *sc, int lb, int p0,
     return w;
 }
 
-// Grid: (tiles of TW words, groups of RA rows).  Shared memory: the code
-// tile over words [w0 - K, w0 + TW + K) plus s_max bytes, then the eq
-// bit-words of RA rows over the same words.  K words of halo on each side
-// cover 2 * s_max + 32 positions, so any run that reaches past them is
-// longer than 2s and cannot be an anchor.
-__global__ void anchor_planes_kernel(const uint8_t *__restrict__ code, int L,
-                                     int min_shift, int ns, int K,
-                                     u32 *__restrict__ out, int W)
-{
-    extern __shared__ unsigned char smem[];
-    const int EW = TW + 2 * K;                 // words in the extended tile
-    const int s_max = min_shift + ns - 1;
-    const int ncode = EW * 32 + s_max;
-    uint8_t *sc = smem;
-    u32 *eqs = (u32 *)(smem + ((ncode + 15) & ~15));
-
-    const int w0 = blockIdx.x * TW;
-    const int row0 = blockIdx.y * RA;
-    const int pbase = (w0 - K) * 32;           // global position of sc[0]
-
-    for (int i = threadIdx.x; i < ncode; i += THREADS) {
-        int p = pbase + i;
-        sc[i] = (p >= 0 && p < L) ? code[p] : 0;
-    }
-    __syncthreads();
-
-    // neighbouring threads take neighbouring rows of one word: they read
-    // the same code byte and consecutive shifted bytes
-    for (int i = threadIdx.x; i < RA * EW; i += THREADS) {
-        int r = i % RA, wl = i / RA;
-        int row = row0 + r;
-        u32 w = 0;
-        if (row < ns) {
-            int s = min_shift + row;
-            w = eq_word(sc, wl * 32, pbase + wl * 32, s, L - s);
-        }
-        eqs[r * EW + wl] = w;
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < RA * TW; i += THREADS) {
-        int r = i % RA, wl = i / RA;
-        int row = row0 + r, gw = w0 + wl;
-        if (row >= ns || gw >= W)
-            continue;
-        const int s = min_shift + row;
-        const int hi = L - s;                  // runs must close before hi
-        const u32 *e = eqs + r * EW;
-        const int we = K + wl;                 // this word in eqs
-        u32 rem = e[we], anch = 0;
-        while (rem) {
-            int a = __ffs(rem) - 1;            // first run bit in the word
-            u32 tail = ~(rem >> a);
-            // run is bits [a, b); tail has ones above bit 31 - a
-            int b = (tail == 0) ? 32 : a + __ffs(tail) - 1;
-            int left = 0, right = 0;
-            if (a == 0) {                      // run may start earlier
-                for (int k = we - 1; k >= 0 && left < 2 * s; k--) {
-                    int c = __clz(~e[k]);
-                    left += c;
-                    if (c < 32) break;
-                }
-            }
-            if (b == 32) {                     // run may end later
-                for (int k = we + 1; k < EW && right < 2 * s; k++) {
-                    u32 nx = ~e[k];
-                    int c = nx ? __ffs(nx) - 1 : 32;
-                    right += c;
-                    if (c < 32) break;
-                }
-            }
-            int len = left + (b - a) + right;
-            int end = gw * 32 + b + right;     // exclusive run end
-            u32 bits = (b == 32 ? 0xffffffffu : ((1u << b) - 1u))
-                       & ~((1u << a) - 1u);
-            if (len >= 3 && len < 2 * s && end < hi)
-                anch |= bits;
-            rem &= ~bits;
-        }
-        out[(size_t)row * W + gw] = anch;
-    }
-}
-
 #define EV_T 256       // event pass: threads a block = tile words, one each
 #define EV_WARPS (EV_T / 32)
 #define EV_PU 4        // words a warp has in flight while building the planes
@@ -178,10 +112,13 @@ __global__ void anchor_planes_kernel(const uint8_t *__restrict__ code, int L,
 
 // The code's two bit-planes and the N words over n words from global word
 // w0, into shared memory: bit j of lo[i] / hi[i] is bit 0 / 1 of the code
-// at position 32 (w0 + i) + j (0 past L), bit j of nw[i] says N there (1
-// past L).  Codes are 0-3 and N is 0, so two positions hold equal codes iff
-// both planes agree there.  Each warp of the block takes every nwarps-th
-// word, one position a lane and one __ballot_sync per word; no barrier.
+// at position 32 (w0 + i) + j (0 past L, and before 0 without N words),
+// bit j of nw[i] says N there (1 past L).  Codes are 0-3 and N is 0, so two
+// positions hold equal codes iff both planes agree there.  Each warp of the
+// block takes every nwarps-th word, one position a lane and one
+// __ballot_sync per word, PU words in flight; no barrier.  Without N words
+// (WITH_N false) nmask and nw are not touched and w0 may be negative.
+template <bool WITH_N, int PU>
 __device__ __forceinline__ void plane_words(const uint8_t *__restrict__ code,
                                             const uint8_t *__restrict__ nmask,
                                             int L, int w0, int n, u32 *lo,
@@ -189,19 +126,19 @@ __device__ __forceinline__ void plane_words(const uint8_t *__restrict__ code,
 {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
-    for (int i4 = warp; i4 < n; i4 += EV_PU * nwarps) {
-        u32 c[EV_PU];
-        bool nb[EV_PU];
+    for (int i4 = warp; i4 < n; i4 += PU * nwarps) {
+        u32 c[PU];
+        bool nb[PU];
 #pragma unroll
-        for (int u = 0; u < EV_PU; u++) {
+        for (int u = 0; u < PU; u++) {
             int i = i4 + u * nwarps;
             long long p = (long long)(w0 + i) * 32 + lane;
-            bool in = i < n && p < L;
+            bool in = i < n && p < L && (WITH_N || p >= 0);
             c[u] = in ? code[p] : 0u;
-            nb[u] = !in || nmask[p] != 0;
+            nb[u] = WITH_N && (!in || nmask[p] != 0);
         }
 #pragma unroll
-        for (int u = 0; u < EV_PU; u++) {
+        for (int u = 0; u < PU; u++) {
             int i = i4 + u * nwarps;
             u32 b0 = __ballot_sync(0xffffffffu, c[u] & 1u);
             u32 b1 = __ballot_sync(0xffffffffu, c[u] & 2u);
@@ -209,7 +146,8 @@ __device__ __forceinline__ void plane_words(const uint8_t *__restrict__ code,
             if (lane == 0 && i < n) {
                 lo[i] = b0;
                 hi[i] = b1;
-                nw[i] = bn;
+                if (WITH_N)
+                    nw[i] = bn;
             }
         }
     }
@@ -223,6 +161,131 @@ __device__ __forceinline__ u32 eq_planes(u32 l, u32 h, u32 la, u32 lb,
 {
     return ~((l ^ __funnelshift_r(la, lb, b))
              | (h ^ __funnelshift_r(ha, hb, b)));
+}
+
+#define AT 512         // anchor pass: threads a block = tile words, one each
+#define APU 16         // anchor pass: code words a warp loads at once
+
+// eq word of shift s = 32 q + b at plane word j (global word gw), masked:
+// 0 before position 0 and from hi = L - s on (whi = hi >> 5; hmask, the
+// bits of word whi below hi).
+__device__ __forceinline__ u32 eq_at(const u32 *lo, const u32 *hi, int j,
+                                     int q, int b, int gw, int whi,
+                                     u32 hmask)
+{
+    u32 v = eq_planes(lo[j], hi[j], lo[j + q], lo[j + q + 1], hi[j + q],
+                      hi[j + q + 1], b);
+    return gw < 0 || gw > whi ? 0u : gw == whi ? v & hmask : v;
+}
+
+// Ones that run on past plane word j + step, a word of all ones, in the
+// direction step (-1: down from bit 31 of the word below, +1: up from bit
+// 0 of the word above, ...): 32 plus their count, or at least cap once the
+// count reaches cap.  Rare: only runs of 32 or more come here.
+__device__ __noinline__ int ones_beyond(const u32 *lo, const u32 *hi, int j,
+                                        int gw, int step, int s, int whi,
+                                        u32 hmask, int cap)
+{
+    const int q = s >> 5, b = s & 31;
+    int n = 32;
+    for (int k = 2 * step; n < cap; k += step) {
+        const u32 x = ~eq_at(lo, hi, j + k, q, b, gw + k, whi, hmask);
+        const int c = step < 0 ? __clz(x) : __clz(__brev(x));
+        n += c;
+        if (c < 32)
+            break;
+    }
+    return n;
+}
+
+// Grid: tiles of AT words (32 positions each); a block writes every shift
+// row of its tile, a thread one word of each row, row after row with no
+// barrier.  Shared memory: the code's two bit-planes over the tile and H =
+// K + 1 words on each side (K = ceil(2 s_max / 32)), and the s_max
+// positions eq reads past them, built once.  Per row, a thread builds the
+// eq word of its word and one more (lane 0 the word below the warp's 32,
+// lane 31 the word above, the others a spare), takes its neighbours' from
+// the lanes beside it by __shfl_sync and decides its word's anchors:
+//   the runs through bit 0 and bit 31 (tmask, lmask; one run if the word
+//   is all ones) take their lengths from the ones that run on into the
+//   neighbours (cl, cr), which walk further, eq word by eq word, only past
+//   a neighbour of all ones, and never past K words (a run that long is
+//   at least 2s and no anchor); the runs inside the word are at most 30
+//   long and are tested bit-parallel: t marks 3 ones in a row and is
+//   dilated back over them, u marks 2s ones in a row (only s <= 15 can
+//   have them) and is dilated over them likewise, by log-doubling shifts.
+// Consecutive threads store consecutive words of a row.
+__global__ void __launch_bounds__(AT) anchor_planes_kernel(
+    const uint8_t *__restrict__ code, int L, int min_shift, int ns, int K,
+    u32 *__restrict__ out, int W)
+{
+    extern __shared__ u32 sw[];
+    const int s_max = min_shift + ns - 1, H = K + 1;
+    const int NP = AT + 2 * H + (s_max >> 5) + 1;   // plane words
+    u32 *lo = sw, *hi = lo + NP;
+
+    const int w0 = blockIdx.x * AT, wb = w0 - H;    // wb: word of lo[0]
+    plane_words<false, APU>(code, nullptr, L, wb, NP, lo, hi, nullptr);
+    __syncthreads();
+
+    const int i = threadIdx.x, lane = i & 31, w = w0 + i, j = H + i;
+    const int jx = lane == 0 ? j - 1 : j + 1;       // the extra word
+    const u32 L0 = lo[j], H0 = hi[j], LX = lo[jx], HX = hi[jx];
+    u32 *o = out + w;
+    for (int row = 0; row < ns; row++, o += W) {
+        const int s = min_shift + row, q = s >> 5, b = s & 31, n2 = 2 * s;
+        const int hpos = L - s, whi = hpos >> 5;
+        const int rem = hpos - 32 * min(w, W);     // w >= W: not stored
+        const u32 hmask = (1u << (hpos & 31)) - 1u;
+        u32 e = eq_planes(L0, H0, lo[j + q], lo[j + q + 1], hi[j + q],
+                          hi[j + q + 1], b);
+        u32 x = eq_planes(LX, HX, lo[jx + q], lo[jx + q + 1], hi[jx + q],
+                          hi[jx + q + 1], b);
+        e = w > whi ? 0u : w == whi ? e & hmask : e;
+        const int gx = wb + jx;
+        x = gx < 0 || gx > whi ? 0u : gx == whi ? x & hmask : x;
+        u32 ep = __shfl_up_sync(0xffffffffu, e, 1);
+        u32 en = __shfl_down_sync(0xffffffffu, e, 1);
+        ep = lane == 0 ? x : ep;
+        en = lane == 31 ? x : en;
+
+        int cl = __clz(~ep);                       // ones below bit 0
+        int cr = __clz(__brev(~en));               // ones above bit 31
+        if (cl == 32)
+            cl = ones_beyond(lo, hi, j, w, -1, s, whi, hmask, n2);
+        if (cr == 32)
+            cr = ones_beyond(lo, hi, j, w, 1, s, whi, hmask, n2);
+        const bool full = e == 0xffffffffu;
+        const int tc = __clz(__brev(~e)), lc = __clz(~e);   // 32 if full
+        const u32 tmask = full ? 0xffffffffu : (1u << tc) - 1u;
+        const u32 lmask = full ? 0xffffffffu : ~(0xffffffffu >> lc);
+        const u32 in = e & ~tmask & ~lmask;        // runs closed inside
+        const u32 t = in & (in >> 1) & (in >> 2);
+        u32 a = t | (t << 1) | (t << 2);
+        if (n2 <= 30) {                            // uniform in the block
+            u32 u = in;
+            int k = 1;
+            for (; 2 * k <= n2; k *= 2)
+                u &= u >> k;
+            u &= u >> (n2 - k);                    // bit j: in[j .. j + 2s)
+            for (k = 1; 2 * k <= n2; k *= 2)
+                u |= u << k;
+            u |= u << (n2 - k);
+            a &= ~u;
+        }
+        if (rem > 0 && rem < 32) {                 // the inner run through
+            int c = __clz(~(in << (32 - rem)));    // hi - 1 stays open
+            a &= ~(((1u << c) - 1u) << (rem - c));
+        }
+        const int lenl = cl + tc + (full ? cr : 0), endl = full ? 32 + cr : tc;
+        const int lenr = lc + cr + (full ? cl : 0);
+        if (tc && lenl >= 3 && lenl < n2 && endl < rem)
+            a |= tmask;
+        if (lc && lenr >= 3 && lenr < n2 && 32 + cr < rem)
+            a |= lmask;
+        if (w < W)
+            *o = a;
+    }
 }
 
 // Bit j: at most one (one = ~0) or two (one = 0) zeros among bits j..j+7 of
@@ -282,7 +345,7 @@ __global__ void __launch_bounds__(EV_T) event_words_kernel(
 
     const int w0 = blockIdx.x * EV_T;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    plane_words(code, nmask, L, w0, EW, lo, hi, nw);
+    plane_words<true, EV_PU>(code, nmask, L, w0, EW, lo, hi, nw);
     __syncthreads();
 
     const int i = threadIdx.x, w = w0 + i;
@@ -486,15 +549,13 @@ extern "C" int ribbit_anchor_planes(const uint8_t *code, int L, int min_shift,
     if (err != cudaSuccess)
         return (int)err;
     const int s_max = min_shift + ns - 1;
-    const int K = (2 * s_max + 31) / 32 + 1;
-    const int EW = TW + 2 * K;
-    const size_t smem = (size_t)((EW * 32 + s_max + 15) & ~15)
-                        + (size_t)RA * EW * sizeof(u32);
+    const int K = (2 * s_max + 31) / 32;
+    const int NP = AT + 2 * (K + 1) + (s_max >> 5) + 1;
+    const size_t smem = (size_t)2 * NP * sizeof(u32);
     int rc = launch_smem((const void *)anchor_planes_kernel, smem);
     if (rc)
         return rc;
-    dim3 grid((W + TW - 1) / TW, (ns + RA - 1) / RA);
-    anchor_planes_kernel<<<grid, THREADS, smem, stream>>>(
+    anchor_planes_kernel<<<(W + AT - 1) / AT, AT, smem, stream>>>(
         code, L, min_shift, ns, K, out, W);
     return (int)cudaGetLastError();
 }
