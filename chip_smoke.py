@@ -11,11 +11,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      bit-equal, on one full 8 Mi-bp segment plus halo of a simulated
      chromosome, on edge lengths (the event kernel's tile edges among
      them), a poly-A case with N at word edges, an all-N one and planted
-     eq runs at the anchor limits (anchor_edge_plan), at three motif
-     configurations (the default, -m 4 -M 37 and -M 300); times of both
-     at the segment shape (CUDA events, after a warm-up), their share of
-     the bound and their rate in GB/s, and the anchor kernel's time at
-     each configuration;
+     eq runs at the anchor limits (anchor_edge_plan) and at the perfect-run
+     cutoffs (perfect_edge_plan), at three motif configurations (the
+     default, -m 4 -M 37 and -M 300); times of both at the segment shape
+     (CUDA events, after a warm-up), their share of the bound and their
+     rate in GB/s, and the anchor kernel's time at each configuration;
   4. the event-extraction path end to end through the port's CLI
      (--backend gpu) on a ~47 Mb five-contig genome made with the port's
      sim: launch counts, event streams against the C generation
@@ -38,8 +38,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      forward kernels, host traceback and the rest;
   7. the dense-mask kernel against its plain version on the card,
      bit-equal on all four planes, and its q7, q6 and pm rows against the
-     event words' bits, on phase 3's inputs at both configurations; its
-     time at the segment shape;
+     event words' bits, on phase 3's inputs (the planted perfect runs,
+     perfect_edge_plan, among them) at its three configurations; its time,
+     share of the bound and GB/s at the segment shape at each;
   8. the dense path end to end: scan_events_via_masks segment by segment
      with exact stitching on the five-contig genome, chr21's streams
      against the event path's, replay and refinement in the C core, BED
@@ -88,6 +89,11 @@ POLY_A_BP = 12_000             # across the event kernel's first tile edge
 # words of 32 positions)
 ANCHOR_UNITS = (2, 3, 16, 17, 50, 102)
 ANCHOR_TILE = 512 * 32
+# shifts of the planted perfect runs (the cutoff rule changes between 6
+# and 7, the dense kernel's run walk starts at 33), and the dense kernel's
+# tile (256 words of 32 positions) where L % 16 == 0
+PERFECT_UNITS = (2, 3, 6, 7, 31, 32, 33, 34, 64, 100, 200, 300)
+DENSE_TILE = 256 * 32
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 SSW_REPS = 5
@@ -174,13 +180,13 @@ def anchor_run_lengths(m: int):
     return tuple(dict.fromkeys((2, 3, 2 * m - 1, 2 * m, 2 * m + 1)))
 
 
-def _plant(codes, rng, a: int, m: int, k: int):
-    """A perfect tandem repeat of a random unit of m bases over positions
-    [a, a + m + k) (cut at the end of codes, which reads as 0 past it),
-    with the bases around it chosen so that eq of shift m holds exactly
-    the run [a, a + k).  Returns (m, a, k)."""
+def _plant(codes, rng, a: int, m: int, k: int, unit=None):
+    """A perfect tandem repeat of a unit of m bases (random unless given)
+    over positions [a, a + m + k) (cut at the end of codes, which reads as
+    0 past it), with the bases around it chosen so that eq of shift m
+    holds exactly the run [a, a + k).  Returns (m, a, k)."""
     L = len(codes)
-    unit = rng.integers(0, 4, m)
+    unit = rng.integers(0, 4, m) if unit is None else unit
     if a + m + k > L:                     # the run's last compare reads 0
         unit[(L - a) % m] = 0
     end = min(a + m + k, L)
@@ -222,10 +228,59 @@ def anchor_edge_plan(seed: int = 0):
              .decode(), runs) for name, codes, runs in plan]
 
 
+def cutoff(m: int) -> int:
+    """The shortest perfect run on shift m (parse_perfect_shiftxor.cpp)."""
+    return 12 - m if m <= 6 else m
+
+
+def perfect_edge_plan(seed: int = 0):
+    """(name, sequence, runs): eq runs of exactly k on shift m (runs as
+    (m, start, k)) for m in PERFECT_UNITS and k in cutoff(m) - 1, cutoff(m)
+    and cutoff(m) + 1.  One sequence (a multiple of 32 long) puts every
+    (m, k) across a tile edge of the dense kernel (DENSE_TILE), across a
+    word edge, and from the last bit of a word.  One short sequence per
+    (m, k) starts with a run of k at p = 0, holds a run of cutoff(m) + 1
+    cut by one N at offset cutoff(m) - 1 (the unit has an A there, so the
+    code is unchanged and eq keeps the run), and ends with k A's: an eq run
+    of exactly k on every shift whose last position is L - 1 (the base
+    before it is not A).  The short lengths take every residue mod 16."""
+    rng = np.random.default_rng(seed)
+    pairs = [(m, k) for m in PERFECT_UNITS
+             for k in (cutoff(m) - 1, cutoff(m), cutoff(m) + 1)]
+    codes = rng.integers(0, 4, DENSE_TILE * (len(pairs) + 1) + 512)
+    runs = []
+    for j, (m, k) in enumerate(pairs):
+        base = DENSE_TILE * (j + 1)
+        for a in (base - k // 2, base + 4096 - k // 2, base + 2048 + 31):
+            runs.append(_plant(codes, rng, a, m, k))
+    plan = [("perfect edges", codes, runs, [])]
+    for i, (m, k) in enumerate(pairs):
+        c = cutoff(m)
+        a = m + k + 16                       # the run cut by N
+        L = a + m + c + 19 + k
+        L += (i - L) % 16
+        codes = rng.integers(0, 4, L)
+        unit = rng.integers(0, 4, m)
+        unit[(c - 1) % m] = 0
+        runs = [_plant(codes, rng, 0, m, k),
+                _plant(codes, rng, a, m, c + 1, unit)]
+        codes[L - k:] = 0
+        codes[L - k - 1] = rng.integers(1, 4)
+        runs.append((m, L - k, k))
+        plan.append((f"perfect ends m={m} k={k}", codes, runs, [a + c - 1]))
+    out = []
+    for name, codes, runs, ns in plan:
+        bases = np.frombuffer(b"ACGT", np.uint8)[codes].copy()
+        bases[ns] = ord("N")
+        out.append((name, bases.tobytes().decode(), runs))
+    return out
+
+
 def kernel_cases(genome_seq: str):
     """(name, sequence): one full segment plus halo of the chromosome,
     random sequences at the edge lengths (10% N), the poly-A case, an
-    all-N one and the planted anchor runs (anchor_edge_plan)."""
+    all-N one, the planted anchor runs (anchor_edge_plan) and perfect runs
+    (perfect_edge_plan)."""
     from ribbit_tpu_torch.eventstitch import HALO
 
     seg_len = (8 << 20) + 2 * HALO
@@ -239,6 +294,7 @@ def kernel_cases(genome_seq: str):
     cases.append(("poly-A/N", poly_a_n()))
     cases.append(("all-N", "N" * 5000))
     cases += [(name, seq) for name, seq, _ in anchor_edge_plan()]
+    cases += [(name, seq) for name, seq, _ in perfect_edge_plan()]
     return cases
 
 
@@ -772,10 +828,11 @@ def word_bits_err(planes, words, cfg) -> int:
 
 def phase_dense_kernel(se, sm, cases, cfgs, dev, rate):
     """dense_masks against its plain version and the event words' bits,
-    bit-equal; time and bound at the segment shape."""
+    bit-equal; time, share of the bound and GB/s at the segment shape at
+    every configuration (the first one's go to the kernels line)."""
     from ribbit_tpu_torch.encode import encode
 
-    err, stats = 0, None
+    err, stats, seg = 0, None, {}
     for cfg in cfgs:
         tag = f"m{cfg.min_motif}-M{cfg.max_motif}"
         for name, seq in cases:
@@ -785,7 +842,9 @@ def phase_dense_kernel(se, sm, cases, cfgs, dev, rate):
             a = se.anchor_planes(c, cfg)
             got = sm.masks(c, n, a, cfg)
             want = sm.masks_ref(c, n, a, cfg)
-            e = max(max_abs_err(g, w) for g, w in zip(got, want))
+            # 32 rows at a time: at -M 300 a plane of the segment is 2.5 GB
+            e = max(max_abs_err(g[i:i + 32], w[i:i + 32])
+                    for g, w in zip(got, want) for i in range(0, len(g), 32))
             del want
             e_bits = word_bits_err(got, se.event_words(c, n, a, cfg), cfg)
             torch.cuda.synchronize()
@@ -797,19 +856,25 @@ def phase_dense_kernel(se, sm, cases, cfgs, dev, rate):
                 raise AssertionError(f"dense_masks != plain version or the "
                                      f"event words ({tag} {name}: {e}, "
                                      f"{e_bits})")
-            if name == "segment" and cfg is cfgs[0]:
+            del got
+            if name == "segment":
                 ms = cuda_ms(lambda: sm.masks(c, n, a, cfg), KERNEL_REPS)
-                plain_ms = cuda_ms(lambda: sm.masks_ref(c, n, a, cfg),
-                                   PLAIN_REPS)
-                bms, by = bound(*br.scan_work("dense_masks", len(seq), cfg),
-                                rate)
-                stats = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by)
-            del got, a
-    log(f"  dense_masks at the segment shape: kernel {stats['ms']:.3f} ms, "
-        f"plain {stats['plain_ms']:.3f} ms "
-        f"({stats['plain_ms'] / stats['ms']:.1f}x), bound "
-        f"{stats['bound_ms']:.4f} ms by {stats['bound_by']}")
+                work = br.scan_work("dense_masks", len(seq), cfg)
+                bms, by = bound(*work, rate)
+                seg[tag] = (ms, bms, by, work[0])
+                if cfg is cfgs[0]:
+                    plain_ms = cuda_ms(lambda: sm.masks_ref(c, n, a, cfg),
+                                       PLAIN_REPS)
+                    stats = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by)
+            del a
+    log(f"  dense_masks at the segment shape: plain "
+        f"{stats['plain_ms']:.3f} ms ({stats['plain_ms'] / stats['ms']:.1f}x "
+        "the kernel)")
+    for tag, (ms, bms, by, nbytes) in seg.items():
+        log(f"  dense_masks at the segment shape, {tag}: kernel {ms:.4f} ms, "
+            f"bound {bms:.4f} ms by {by} ({bms / ms:.1%} of it), "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
     return stats
 
 
@@ -1112,7 +1177,9 @@ def main() -> int:
 
     log("[7] dense-mask kernel against its plain version and the event "
         "words on the card (bit-equal)")
-    dense = phase_dense_kernel(se, sm, cases, cfgs, dev, rate)
+    dense = phase_dense_kernel(
+        se, sm, cases, cfgs + (RibbitConfig.create(max_motif=BIG_M),), dev,
+        rate)
 
     log("[8] the dense path end to end (scan_events_via_masks, stitched, "
         "C replay and refinement)")

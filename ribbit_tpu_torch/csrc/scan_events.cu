@@ -44,11 +44,22 @@
 // The anchor pass writes 12.75 B/bp (0.032 ms at the segment), but its
 // run test issues over a hundred instructions per word and row, so the
 // instruction issue, not its bytes, sets its pace (PERF.md).  Each pass
-// keeps every per-position quantity as a bit in a 32-bit word.  The dense
-// pass builds eq once per block into shared memory as bit-words (a byte
-// loop, eq_word), searches runs with __clz / __ffs over whole words, takes
-// an 8-position window as one __funnelshift_r plus __popc and writes four
-// positions of a plane per 32-bit store.
+// keeps every per-position quantity as a bit in a 32-bit word.
+//
+// The dense pass takes a tile of 256 words (8,192 positions) of every motif
+// row in one block, so the code is read once.  The block builds the code's
+// bit-planes and N words over the tile and a thin halo once (plane_words);
+// a thread then owns one word of each row, row after row with no barrier:
+// eq of three words by funnel shifts (eq_planes), the overlay from anchor
+// rows held in a rolling window of registers, q7 and q6 by the event pass's
+// bit-sliced counters (few_zeros), the perfect-run starts bit-parallel (an
+// AND of log-doubled shifts for cutoffs up to 32, __clz and a walk past
+// all-ones words beyond), and each plane word turns into 32 bytes by a
+// nibble multiply and leaves in two 16-byte streaming stores.  Lanes trade
+// halves of their words by __shfl_sync so that each store instruction of a
+// warp writes 512 contiguous bytes of a row: with each lane writing its own
+// 32 bytes (two stores 32 bytes apart) the kernel ran 1.8x slower on an
+// H100, for the same bytes (PERF.md).
 //
 // The anchor pass takes a tile of 512 words (16,384 positions) of every
 // shift row in one block.  The block builds the code's two bit-planes over
@@ -85,25 +96,7 @@
 
 typedef uint32_t u32;
 
-#define THREADS 256    // dense pass: threads a block
-#define TW 64          // dense pass: bit-words (of 32 positions) a block tile
 #define OUT_ROWS 8     // shift rows per output plane in the event pass
-
-// eq bit-word for word-local offset lb (byte offset of the word's first
-// position in the shared code tile), global position p0 of its bit 0 and
-// shift s; bits at p < 0 or p >= lim are 0.
-__device__ __forceinline__ u32 eq_word(const uint8_t *sc, int lb, int p0,
-                                       int s, int lim)
-{
-    u32 w = 0;
-#pragma unroll 8
-    for (int j = 0; j < 32; j++) {
-        int p = p0 + j;
-        if (p >= 0 && p < lim && sc[lb + j] == sc[lb + j + s])
-            w |= 1u << j;
-    }
-    return w;
-}
 
 #define EV_T 256       // event pass: threads a block = tile words, one each
 #define EV_WARPS (EV_T / 32)
@@ -112,12 +105,12 @@ __device__ __forceinline__ u32 eq_word(const uint8_t *sc, int lb, int p0,
 
 // The code's two bit-planes and the N words over n words from global word
 // w0, into shared memory: bit j of lo[i] / hi[i] is bit 0 / 1 of the code
-// at position 32 (w0 + i) + j (0 past L, and before 0 without N words),
-// bit j of nw[i] says N there (1 past L).  Codes are 0-3 and N is 0, so two
+// at position 32 (w0 + i) + j (0 before 0 and past L), bit j of nw[i] says
+// N there (1 before 0 and past L).  Codes are 0-3 and N is 0, so two
 // positions hold equal codes iff both planes agree there.  Each warp of the
 // block takes every nwarps-th word, one position a lane and one
-// __ballot_sync per word, PU words in flight; no barrier.  Without N words
-// (WITH_N false) nmask and nw are not touched and w0 may be negative.
+// __ballot_sync per word, PU words in flight; no barrier.  w0 may be
+// negative.  Without N words (WITH_N false) nmask and nw are not touched.
 template <bool WITH_N, int PU>
 __device__ __forceinline__ void plane_words(const uint8_t *__restrict__ code,
                                             const uint8_t *__restrict__ nmask,
@@ -133,7 +126,7 @@ __device__ __forceinline__ void plane_words(const uint8_t *__restrict__ code,
         for (int u = 0; u < PU; u++) {
             int i = i4 + u * nwarps;
             long long p = (long long)(w0 + i) * 32 + lane;
-            bool in = i < n && p < L && (WITH_N || p >= 0);
+            bool in = i < n && p >= 0 && p < L;
             c[u] = in ? code[p] : 0u;
             nb[u] = WITH_N && (!in || nmask[p] != 0);
         }
@@ -400,134 +393,182 @@ __global__ void __launch_bounds__(EV_T) event_words_kernel(
     }
 }
 
-#define MROWS 8        // motif rows per block in the dense pass
+#define DM_T 256       // dense pass: threads a block, one word of a row each
+#define DM_PU 8        // dense pass: code words a warp loads at once
+#define FULL 0xffffffffu
 
-// Length of the pm run from bit b of word wl is at least cutoff; pm words
-// are eq & ~N, walked past the word with __ffs as the anchor pass does.
-__device__ __forceinline__ bool run_at_least(const u32 *e, const u32 *nw,
-                                             int wl, int b, int cutoff,
-                                             int EW)
+// Bit t (t < 32): bits t .. t + c - 1 of the 64-bit x1:x0 are all ones,
+// for 1 <= c <= 32; log-doubling ANDs.
+__device__ __forceinline__ u32 ones_from(u32 x0, u32 x1, int c)
 {
-    u32 inv = ~((e[wl] & ~nw[wl]) >> b);   // ones above bit 31 - b
-    int len = inv ? __ffs(inv) - 1 : 32;
-    if (len < 32 - b)
-        return len >= cutoff;
-    for (int k = wl + 1; k < EW && len < cutoff; k++) {
-        u32 nx = ~(e[k] & ~nw[k]);
-        int c = nx ? __ffs(nx) - 1 : 32;
-        len += c;
-        if (c < 32)
-            break;
+    int k = 1;
+    for (; 2 * k <= c; k *= 2) {
+        x0 &= __funnelshift_r(x0, x1, k);
+        x1 &= x1 >> k;
     }
-    return len >= cutoff;
+    return x0 & __funnelshift_r(x0, x1, c - k);
 }
 
-// Grid: (tiles of TW words, groups of MROWS motif rows).  Shared memory:
-// the code tile over words [w0 - 1, w0 + TW + H) plus s_max bytes, the
-// n_mask tile, the N bit-words (positions < 0 or >= L set), and eq and
-// overlay bit-words of the group's rows over the same words.  The left word
-// gives pm[p - 1] at the tile's first position; the H right words serve
-// windows that start in the tile's last word and the run walk up to the
-// largest cutoff.  A thread takes four positions of one row.
-__global__ void dense_masks_kernel(const uint8_t *__restrict__ code,
-                                   const uint8_t *__restrict__ nmask,
-                                   const u32 *__restrict__ anch, int L,
-                                   int min_shift, int ns, int r0, int nm,
-                                   int H, int W, int8_t *__restrict__ out)
+// The ones of a pm run that has len of them up to plane word j and goes on
+// into x, the pm word j + 1 (pm = eq of shift 32 q + b and not N): is the
+// run at least c long?  Walks on past pm words of all ones only; positions
+// >= L are N, so no walk passes L.  Rare: only runs of 32 or more come here.
+__device__ __noinline__ bool run_reaches(const u32 *lo, const u32 *hi,
+                                         const u32 *nw, int j, int q, int b,
+                                         int len, u32 x, int c)
 {
-    extern __shared__ unsigned char smem[];
-    const int EW = 1 + TW + H;
-    const int s_max = min_shift + r0 + nm - 1;
-    const int ncode = EW * 32 + s_max;
-    uint8_t *sc = smem;
-    uint8_t *sn = smem + ((ncode + 15) & ~15);
-    u32 *nw = (u32 *)(sn + EW * 32);
-    u32 *eqw = nw + EW;
-    u32 *ovw = eqw + MROWS * EW;
-
-    const int w0 = blockIdx.x * TW;
-    const int k0 = blockIdx.y * MROWS;
-    const int pbase = (w0 - 1) * 32;           // global position of sc[0]
-
-    for (int i = threadIdx.x; i < ncode; i += THREADS) {
-        int p = pbase + i;
-        bool in = p >= 0 && p < L;
-        sc[i] = in ? code[p] : 0;
-        if (i < EW * 32)
-            sn[i] = in ? nmask[p] : 1;
+    for (;;) {
+        const int n = __clz(__brev(~x));
+        len += n;
+        if (n < 32 || len >= c)
+            return len >= c;
+        j++;
+        x = eq_planes(lo[j + 1], hi[j + 1], lo[j + 1 + q], lo[j + 2 + q],
+                      hi[j + 1 + q], hi[j + 2 + q], b) & ~nw[j + 1];
     }
-    __syncthreads();
+}
 
-    for (int i = threadIdx.x; i < EW; i += THREADS) {
-        u32 w = 0;
-        for (int j = 0; j < 32; j++)
-            w |= (u32)(sn[i * 32 + j] != 0) << j;
-        nw[i] = w;
-    }
-    for (int i = threadIdx.x; i < MROWS * EW; i += THREADS) {
-        int r = i % MROWS, wl = i / MROWS;
-        int k = k0 + r, gw = w0 - 1 + wl;
-        u32 eq = 0, ov = 0;
-        if (k < nm) {
-            int row = r0 + k;
-            eq = eq_word(sc, wl * 32, pbase + wl * 32, min_shift + row, L);
-            if (gw >= 0 && gw < W) {
-                for (int d = -2; d <= 2; d++) {
-                    int nr = row + d;
-                    if (d != 0 && nr >= 0 && nr < ns)
-                        ov |= anch[(size_t)nr * W + gw];
-                }
-            }
+// Bytes 0-3: bits 4n .. 4n + 3 of x as 0/1 bytes.  The four partial
+// products of the multiply land on distinct bits, so nothing carries.
+__device__ __forceinline__ u32 nibble_bytes(u32 x, int n)
+{
+    return ((x >> (4 * n)) & 0xfu) * 0x00204081u & 0x01010101u;
+}
+
+// Positions P .. P + 15 of a plane row of length L from bits 0-15 of v: one
+// streaming 16-byte store where all 16 lie in the row (row + P is then
+// 16-byte aligned), else the bytes in [0, L) one by one (the row's head and
+// tail).
+__device__ __forceinline__ void put16(int8_t *row, int P, u32 v, int L)
+{
+    if (P >= 0 && P <= L - 16) {
+        __stcs((uint4 *)(row + P),
+               make_uint4(nibble_bytes(v, 0), nibble_bytes(v, 1),
+                          nibble_bytes(v, 2), nibble_bytes(v, 3)));
+    } else {
+        for (int t = 0; t < 16; t++) {
+            const long long p = (long long)P + t;
+            if (p >= 0 && p < L)
+                row[p] = (int8_t)((v >> t) & 1u);
         }
-        eqw[r * EW + wl] = eq;
-        ovw[r * EW + wl] = eq | ov;
     }
+}
+
+__device__ __forceinline__ u32 anch_at(const u32 *__restrict__ anch, int row,
+                                       int ns, int w, int W)
+{
+    return row >= 0 && row < ns && w >= 0 && w < W
+               ? __ldg(anch + (size_t)row * W + w) : 0u;
+}
+
+// Grid: tiles of DM_T words (31 of each 32 if lap).  A block builds the
+// code's two bit-planes and the N words over its tile, the word before it
+// (pm[p - 1] at the tile's first position) and NP - DM_T - 1 more (eq reads
+// s_max / 32 + 2 words ahead, the perfect-run walk ceil(cut_max / 32)) once
+// by __ballot_sync.  Then a thread owns one word w, 32 positions, of every
+// motif row, row after row with no barrier:
+//   eq of words w - 1, w and w + 1 from the planes (eq_planes); the overlay
+//   with anchor rows r - 2 .. r + 2 at w and w + 1 as a rolling window of
+//   registers, one row of coalesced loads ahead; q7, q6 by bit-sliced
+//   window counters and pm as in the event pass; ps = the pm-run starts
+//   whose run reaches the cutoff c: for c <= 32 an AND of c shifted copies
+//   of the pm pair (w, w + 1) by log-doubling, for c > 32 only the run
+//   through bit 31, measured by __clz and walked on past all-ones words;
+//   then each plane's 32 bits become 32 bytes, two 16-byte streaming stores.
+// A plane row starts at (pl nm + k) L bytes, so for L % 16 != 0 rows sit at
+// every offset a of the 16-byte grid (lap = 1).  Then lane 0 of each warp
+// works the word before its 31 (and stores nothing), and every other lane
+// shifts its 32 positions down by a with its lower neighbour's bits
+// (__shfl_up_sync), so its stores land on the grid; the row's head and tail
+// go byte by byte.  A warp stores a row's 64 pieces of 16 bytes (two a
+// word) as two instructions of 512 contiguous bytes: lane l writes pieces l
+// and 32 + l, taken from lanes l / 2 and 16 + l / 2 by __shfl_sync.
+__global__ void __launch_bounds__(DM_T) dense_masks_kernel(
+    const uint8_t *__restrict__ code, const uint8_t *__restrict__ nmask,
+    const u32 *__restrict__ anch, int L, int min_shift, int ns, int r0,
+    int nm, int NP, int lap, int8_t *__restrict__ out)
+{
+    extern __shared__ u32 sw[];
+    u32 *lo = sw, *hi = lo + NP, *nw = hi + NP;
+    const int W = (L + 31) >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wpb = DM_T - lap * (DM_T / 32);     // words a block stores
+    const int w0 = blockIdx.x * wpb, wb = w0 - 1 - lap;   // wb: word of lo[0]
+    plane_words<true, DM_PU>(code, nmask, L, wb, NP, lo, hi, nw);
     __syncthreads();
 
-    const int QT = TW * 8;                     // quads of positions per row
-    for (int i = threadIdx.x; i < MROWS * QT; i += THREADS) {
-        int r = i / QT, q = i % QT;
-        int k = k0 + r;
-        int p = w0 * 32 + 4 * q;
-        if (k >= nm)
-            break;
-        if (p >= L)
-            continue;
-        int wl = 1 + (q >> 3), sh = (q & 7) * 4;
-        int m = min_shift + r0 + k;
-        int cutoff = m <= 6 ? 12 - m : m;
-        const u32 *e = eqw + r * EW, *o = ovw + r * EW;
-        u32 n8 = __funnelshift_r(nw[wl], nw[wl + 1], sh);
-        u32 e8 = __funnelshift_r(e[wl], e[wl + 1], sh);
-        u32 o8 = __funnelshift_r(o[wl], o[wl + 1], sh);
-        u32 pmb = e8 & ~n8;
-        u32 prev = sh ? (e[wl] & ~nw[wl]) >> (sh - 1)
-                      : (e[wl - 1] & ~nw[wl - 1]) >> 31;
-        u32 v7 = 0, v6 = 0, vs = 0, vm = 0;
+    const int w = w0 + warp * (32 - lap) + lane - lap, j = w - wb;
+    const u32 Lm = lo[j - 1], Hm = hi[j - 1], L0 = lo[j], H0 = hi[j];
+    const u32 L1 = lo[j + 1], H1 = hi[j + 1];
+    const u32 notnm = ~nw[j - 1], notn = ~nw[j], notn1 = ~nw[j + 1];
+    u32 nany = nw[j];
 #pragma unroll
-        for (int j = 0; j < 4; j++) {
-            bool nfree = ((n8 >> j) & 0xffu) == 0;
-            u32 b7 = nfree && __popc((e8 >> j) & 0xffu) >= 7;
-            u32 b6 = nfree && __popc((o8 >> j) & 0xffu) >= 6;
-            u32 bm = (pmb >> j) & 1u;
-            u32 bp = (j ? pmb >> (j - 1) : prev) & 1u;
-            u32 bs = bm && !bp
-                     && run_at_least(e, nw, wl, sh + j, cutoff, EW);
-            v7 |= b7 << (8 * j);
-            v6 |= b6 << (8 * j);
-            vs |= bs << (8 * j);
-            vm |= bm << (8 * j);
+    for (int t = 1; t < 8; t++)
+        nany |= __funnelshift_r(nw[j], nw[j + 1], t);
+    const u32 nfree = ~nany;
+
+    // anchor rows r - 2 .. r + 2 at words w (a..) and w + 1 (b..)
+    u32 am2 = anch_at(anch, r0 - 2, ns, w, W);
+    u32 bm2 = anch_at(anch, r0 - 2, ns, w + 1, W);
+    u32 am1 = anch_at(anch, r0 - 1, ns, w, W);
+    u32 bm1 = anch_at(anch, r0 - 1, ns, w + 1, W);
+    u32 a00 = anch_at(anch, r0, ns, w, W);
+    u32 b00 = anch_at(anch, r0, ns, w + 1, W);
+    u32 ap1 = anch_at(anch, r0 + 1, ns, w, W);
+    u32 bp1 = anch_at(anch, r0 + 1, ns, w + 1, W);
+    u32 ap2 = anch_at(anch, r0 + 2, ns, w, W);
+    u32 bp2 = anch_at(anch, r0 + 2, ns, w + 1, W);
+    for (int k = 0; k < nm; k++) {
+        const int r = r0 + k;
+        const u32 an = anch_at(anch, r + 3, ns, w, W);       // in flight
+        const u32 bn = anch_at(anch, r + 3, ns, w + 1, W);
+        const int s = min_shift + r, q = s >> 5, b = s & 31;
+        const int c = s <= 6 ? 12 - s : s;
+        const u32 la = lo[j + q - 1], lb = lo[j + q], lc = lo[j + q + 1];
+        const u32 ld = lo[j + q + 2], ha = hi[j + q - 1], hb = hi[j + q];
+        const u32 hc = hi[j + q + 1], hd = hi[j + q + 2];
+        const u32 em = eq_planes(Lm, Hm, la, lb, ha, hb, b);
+        const u32 e0 = eq_planes(L0, H0, lb, lc, hb, hc, b);
+        const u32 e1 = eq_planes(L1, H1, lc, ld, hc, hd, b);
+        const u32 o0 = e0 | am2 | am1 | ap1 | ap2;
+        const u32 o1 = e1 | bm2 | bm1 | bp1 | bp2;
+        const u32 pm = e0 & notn, pm1 = e1 & notn1;
+        const u32 pprev = (em & notnm) >> 31;
+        u32 ps = 0;
+        if (c <= 32) {                                 // uniform in the grid
+            ps = pm & ~(pm << 1 | pprev) & ones_from(pm, pm1, c);
+        } else {
+            const int top = __clz(~pm);                // ones through bit 31
+            if (top && (top < 32 || !pprev)
+                && run_reaches(lo, hi, nw, j, q, b, top, pm1, c))
+                ps = 1u << (32 - top);
         }
-        const u32 v[4] = {v7, v6, vs, vm};
+        const u32 V[4] = {few_zeros(e0, e1, ~0u) & nfree,       // q7
+                          few_zeros(o0, o1, 0u) & nfree,        // q6
+                          ps, pm};
+#pragma unroll
         for (int pl = 0; pl < 4; pl++) {
-            int8_t *dst = out + ((size_t)pl * nm + k) * L + p;
-            if ((((size_t)dst) & 3) == 0 && p + 3 < L) {
-                *(u32 *)dst = v[pl];
-            } else {
-                for (int j = 0; j < 4 && p + j < L; j++)
-                    dst[j] = (int8_t)((v[pl] >> (8 * j)) & 1u);
+            int8_t *row = out + ((size_t)pl * nm + k) * L;
+            u32 v = V[pl];
+            int a = 0;
+            if (lap) {                                 // uniform in the grid
+                a = (int)((uintptr_t)row & 15);
+                const u32 pv = __shfl_up_sync(FULL, v, 1);
+                v = __funnelshift_rc(pv, v, 32 - a);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; h++) {              // pieces 32 h + lane
+                const int ci = 32 * h + lane, src = ci >> 1;
+                const u32 x = __shfl_sync(FULL, v, src) >> (16 * (ci & 1));
+                // wraps (so is negative) only past 2^31 positions, >= L
+                const int P = (int)(32u * (u32)(w - lane + src)
+                                    + 16 * (ci & 1) - a);
+                if (src >= lap)
+                    put16(row, P, x, L);
             }
         }
+        am2 = am1; am1 = a00; a00 = ap1; ap1 = ap2; ap2 = an;
+        bm2 = bm1; bm1 = b00; b00 = bp1; bp1 = bp2; bp2 = bn;
     }
 }
 
@@ -595,18 +636,16 @@ extern "C" int ribbit_dense_masks(const uint8_t *code, const uint8_t *nmask,
         int c = m <= 6 ? 12 - m : m;
         cut_max = c > cut_max ? c : cut_max;
     }
-    const int H = (cut_max + 31) / 32 + 1;
     const int s_max = min_shift + r0 + nm - 1;
     const int W = (L + 31) / 32;
-    const int EW = 1 + TW + H;
-    const size_t smem = (size_t)((EW * 32 + s_max + 15) & ~15)
-                        + (size_t)EW * 32
-                        + (size_t)(1 + 2 * MROWS) * EW * sizeof(u32);
+    const int lap = (((uintptr_t)out | (uintptr_t)L) & 15) ? 1 : 0;
+    const int wpb = DM_T - lap * (DM_T / 32);
+    const int NP = DM_T + (cut_max + 31) / 32 + (s_max >> 5) + 3;
+    const size_t smem = (size_t)3 * NP * sizeof(u32);
     int rc = launch_smem((const void *)dense_masks_kernel, smem);
     if (rc)
         return rc;
-    dim3 grid((L + TW * 32 - 1) / (TW * 32), (nm + MROWS - 1) / MROWS);
-    dense_masks_kernel<<<grid, THREADS, smem, stream>>>(
-        code, nmask, anch, L, min_shift, ns, r0, nm, H, W, out);
+    dense_masks_kernel<<<(W + lap + wpb - 1) / wpb, DM_T, smem, stream>>>(
+        code, nmask, anch, L, min_shift, ns, r0, nm, NP, lap, out);
     return (int)cudaGetLastError();
 }

@@ -22,7 +22,9 @@ The Pallas kernels cap run lengths (at 128 in K5, 256 in K6); the port uses
 the exact length, which agrees with both for every cutoff up to 128.
 
 The kernel lives in csrc/scan_events.cu beside the event kernels, whose
-eq_word and anchor-plane layout it shares; its header says what bounds it.
+pieces it shares (the code's bit-planes built once per tile, eq by funnel
+shifts over them, the bit-sliced window counters) and whose anchor planes
+it reads; its header says what bounds it and how a block is laid out.
 The wrapper runs the plain version (masks_ref) for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.
 
