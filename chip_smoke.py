@@ -45,9 +45,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      with exact stitching on the five-contig genome, chr21's streams
      against the event path's, replay and refinement in the C core, BED
      against phase 4's byte for byte, launch count and wall time;
-  9. the int32 probe against its plain version, bit-equal, its SASS loop
-     count and counted rate (raises above 105% of the spec int32 rate),
-     then bench_device.run_device_bench() and its JSON line;
+  9. the int32 probe against its plain version, bit-equal at three depths
+     (the full one, one loop body, two), its SASS loop count by opcode and
+     a source operation (raises below one instruction an operation) and
+     counted rate (raises above 105% of the spec int32 rate), the SM clock
+     nvidia-smi samples over 1.5 s of its reps, then
+     bench_device.run_device_bench() and its JSON line;
  10. the eq_sum8 kernel against its plain version on the card, bit-equal
      on both outputs, on phase 3's inputs at both configurations and on
      the edge lengths at -M 300 (past the Pallas kernel's row cap); its
@@ -104,6 +107,7 @@ CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
 BAND_EDGE = 8193               # one row past a band of the large kernel
 LONG_READ = 29_999             # four bands, the last of 5,423 rows
 SOURCES = ("scan_events", "ssw_forward", "alu_probe", "scan_dense")
+CLOCK_WINDOW_MS = 1500         # the probe's reps while nvidia-smi samples
 # -M past the Pallas eq/sum8 kernel's cap; the event kernel's shifts then
 # reach ten words ahead
 BIG_M = 300
@@ -966,21 +970,37 @@ def phase_probe_bench(dev, rate):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randint(-2**31, 2**31 - 1, (br.ROWS * br.WIDTH,), generator=g,
                       dtype=torch.int32, device=dev)
-    k = br.alu_probe(x, br.OPS, br.TRIPS)
     plain_ms = cuda_ms(lambda: br.alu_probe_ref(x, br.OPS, br.TRIPS), 1)
-    err = max_abs_err(k, br.alu_probe_ref(x, br.OPS, br.TRIPS))
-    log(f"  alu_probe at OPS {br.OPS} x TRIPS {br.TRIPS} on "
-        f"({br.ROWS}, {br.WIDTH}): err {err}")
+    # the full depth; one loop body as trips of one round; two bodies as
+    # the rounds of one trip
+    unroll = br.probe_unroll()
+    err = 0
+    for ops, trips in ((br.OPS, br.TRIPS), (br.CHAINS, unroll),
+                       (br.CHAINS * 2 * unroll, 1)):
+        e = max_abs_err(br.alu_probe(x, ops, trips),
+                        br.alu_probe_ref(x, ops, trips))
+        log(f"  alu_probe at ops {ops} x trips {trips} on "
+            f"({br.ROWS}, {br.WIDTH}): err {e}")
+        err = max(err, e)
     if err:
         raise AssertionError("alu_probe != plain version")
     probe = br.probe_ceiling(dev)
     log(f"  SASS loop body ({probe['loop_rounds']} rounds, "
         f"{probe['loop_rounds'] * br.CHAINS} source operations): "
         f"{probe['sass_loop_instructions']} integer instructions "
-        f"{probe['sass_loop_opcodes']}")
+        f"{probe['sass_loop_opcodes']}, {probe['insns_per_op']:.4f} a "
+        f"source operation (folding guard: passed)")
     log(f"  alu_probe {probe['ms']:.4f} ms: {probe['int32_tops']:.3f} Tops/s "
         f"= {probe['spec_frac']:.1%} of the spec {probe['spec_tops']:.3f} "
         f"(limit {br.PROBE_LIMIT:.0%}: passed)")
+    reps = max(br.PROBE_REPS, int(CLOCK_WINDOW_MS / probe["ms"]))
+    ms, clocks = br.sm_clocks(lambda: cuda_ms(
+        lambda: br.alu_probe(x, br.OPS, br.TRIPS), reps))
+    if not clocks:
+        raise AssertionError("no SM clock sample during the probe's reps")
+    log(f"  alu_probe over {reps} reps: {ms:.4f} ms; SM clock (nvidia-smi, "
+        f"{len(clocks)} samples) min {min(clocks):.0f}, max "
+        f"{max(clocks):.0f} MHz; clocks.max.sm {br.smi('clocks.max.sm')} MHz")
     bms, by = bound(*br.probe_work(x.numel()), rate)
 
     for fn in (br.alu_probe, sm.masks, se.anchor_planes, se.event_words,

@@ -14,7 +14,10 @@ counts exist once.
              (cuobjdump), times the iterations and threads that run them,
              over its time.  A compiler folds such chains, so a rate taken
              from the source's operation count could be impossible; a rate
-             above 105% of spec_int32_rate raises.
+             above 105% of spec_int32_rate raises, and so does a loop body
+             with fewer instructions than the operations it covers
+             (check_probe_loop).
+  sm_clocks  the SM clocks nvidia-smi reads while a run is on the card.
   scan_work / probe_work
              the bytes and int32 operations of each kernel's function, from
              which chip_smoke.py's bounds and the roofline shares are taken.
@@ -33,6 +36,9 @@ import functools
 import pathlib
 import re
 import subprocess
+import threading
+import time
+
 import torch
 
 from .backend import require_cuda
@@ -73,7 +79,8 @@ PROBE_LIMIT = 1.05             # refuse a probe rate above 105% of spec
 CFG = RibbitConfig.create()    # the configuration the bench runs
 
 
-def _smi(query: str) -> str:
+def smi(query: str) -> str:
+    """nvidia-smi's value of one query of the first card, no units."""
     r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                         "--format=csv,noheader,nounits"],
                        capture_output=True, text=True, timeout=60,
@@ -93,7 +100,7 @@ def spec_int32_rate(device="cuda") -> float:
     """The card's int32 peak in operations/s: SMs x ISSUE_LANES_PER_SM x
     the maximum SM clock (nvidia-smi clocks.max.sm)."""
     require_cuda(device)
-    mhz = float(_smi("clocks.max.sm"))
+    mhz = float(smi("clocks.max.sm"))
     sms = torch.cuda.get_device_properties(
         torch.device(device)).multi_processor_count
     return sms * ISSUE_LANES_PER_SM * mhz * 1e6
@@ -196,6 +203,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def probe_unroll() -> int:
+    """The rounds of one loop body of the probe kernel: the kernel runs
+    whole bodies only, and its SASS loop covers this many rounds."""
+    return _lib().ribbit_alu_probe_unroll()
+
+
 def alu_probe(x: torch.Tensor, ops: int, trips: int) -> torch.Tensor:
     """int32 [n]: for each element, the sum of 8 chains from x + j after
     ops / 8 rounds in each of `trips` blocks (v += j on even chains,
@@ -206,7 +219,7 @@ def alu_probe(x: torch.Tensor, ops: int, trips: int) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     lib = _lib()
-    unroll = lib.ribbit_alu_probe_unroll()
+    unroll = probe_unroll()
     if (ops // CHAINS) * trips % unroll:
         raise ValueError(f"alu_probe: the kernel runs whole loop bodies of "
                          f"{unroll} rounds; ops / {CHAINS} x trips = "
@@ -272,6 +285,21 @@ def sass_loop(sass: str) -> dict:
             "opcodes": dict(collections.Counter(lane))}
 
 
+def check_probe_loop(loop: dict, loop_rounds: int) -> None:
+    """The folding guard: raises if the counted loop body (sass_loop) holds
+    fewer integer lane instructions than the CHAINS x loop_rounds source
+    operations it covers.  The launcher runs whole bodies only, so every
+    XOR chain sees an even number of rounds and returns to x + j: a body
+    that dropped XORs in pairs, or fused two operations into one
+    instruction, would still equal the plain version."""
+    ops = CHAINS * loop_rounds
+    if loop["instructions"] < ops:
+        raise RuntimeError(f"the int32 probe's loop body holds "
+                           f"{loop['instructions']} integer instructions for "
+                           f"{ops} source operations: the compiler folded "
+                           f"the chains {loop['opcodes']}")
+
+
 def probe_sass() -> str:
     """cuobjdump -sass of the built probe library."""
     from .cuda_build import build, nvcc_path
@@ -285,8 +313,9 @@ def probe_sass() -> str:
 def probe_ceiling(device="cuda") -> dict:
     """Times the probe at OPS x TRIPS on the (ROWS, WIDTH) tile and counts
     its SASS loop body: the integer instructions it issued per second
-    (int32_tops).  Raises if that rate exceeds PROBE_LIMIT x
-    spec_int32_rate."""
+    (int32_tops).  Raises if the body holds fewer instructions than the
+    operations it covers (check_probe_loop) or if that rate exceeds
+    PROBE_LIMIT x spec_int32_rate."""
     require_cuda(device)
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -298,13 +327,15 @@ def probe_ceiling(device="cuda") -> dict:
     ms = cuda_ms(lambda: alu_probe(x, OPS, TRIPS), PROBE_REPS,
                  consume=lambda o: o.sum())
     loop = sass_loop(probe_sass())
-    unroll = _lib().ribbit_alu_probe_unroll()
+    unroll = probe_unroll()
+    check_probe_loop(loop, unroll)
     bodies = (OPS // CHAINS) * TRIPS // unroll * x.numel() / (ms / 1e3)
     spec = spec_int32_rate(device)
     rate = loop["instructions"] * bodies
     res = {"ms": ms, "source_ops": probe_work(x.numel())[1],
            "sass_loop_instructions": loop["instructions"],
            "sass_loop_opcodes": loop["opcodes"], "loop_rounds": unroll,
+           "insns_per_op": loop["instructions"] / (CHAINS * unroll),
            "int32_tops": rate / 1e12, "spec_tops": spec / 1e12,
            "spec_frac": rate / spec}
     if rate > PROBE_LIMIT * spec:
@@ -313,6 +344,36 @@ def probe_ceiling(device="cuda") -> dict:
                            f"{PROBE_LIMIT:.0%} of the spec rate "
                            f"{spec / 1e12:.2f}: {res}")
     return res
+
+
+def sm_clocks(run, period_ms: int = 20):
+    """run() (which ends in a synchronize) while nvidia-smi samples the
+    first card's SM clock every period_ms: what run returned, and the
+    samples, in MHz, read between its start and end."""
+    p = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits", "-lms",
+                          str(period_ms)],
+                         stdout=subprocess.PIPE, text=True)
+    samples, first = [], threading.Event()
+
+    def read():
+        for line in p.stdout:
+            samples.append((time.monotonic(), line.strip()))
+            first.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not first.wait(60):
+            raise RuntimeError("nvidia-smi printed no SM clock in 60 s")
+        t0 = time.monotonic()
+        out = run()
+        t1 = time.monotonic()
+    finally:
+        p.terminate()
+        p.wait(60)
+        reader.join(60)
+    return out, [float(v) for t, v in samples if t0 <= t <= t1]
 
 
 def int32_ceiling(device="cuda") -> float:

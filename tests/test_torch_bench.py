@@ -1,9 +1,10 @@
 """The port's bench (ribbit_tpu_torch.bench_device) and roofline
 (ribbit_tpu_torch.bench_roofline) on the CPU: the int32 probe's plain
-version bit for bit against the Pallas probe in interpret mode, the SASS
-loop count on a listing, the byte and operation counts behind the bounds
-and the roofline shares, every key of the bench, no fallback without CUDA
-and no jax after a run.
+version bit for bit against the Pallas probe in interpret mode and both
+against the probe's closed form, the SASS loop count and the folding guard
+on listings, the byte and operation counts behind the bounds and the
+roofline shares, every key of the bench, no fallback without CUDA and no
+jax after a run.
 
 The probe kernel and the timed benches run only on a card;
 chip_smoke.py runs them there."""
@@ -57,6 +58,49 @@ def test_alu_probe_ref_matches_pallas(cpu_jax, ops, trips):
     assert not np.array_equal(want, x.astype(np.int64) * 8 + 28)
 
 
+def probe_closed_form(x: np.ndarray, ops: int, trips: int) -> np.ndarray:
+    """The probe's function in closed form: after R = ops / 8 x trips
+    rounds an even chain holds x + j + j R, an odd chain x + j, XORed with
+    j + 17 when R is odd; the output is their int32-wrapped sum."""
+    r = ops // 8 * trips
+    x = x.astype(np.int64)
+    total = sum(x + j + j * r if j % 2 == 0
+                else (x + j) ^ (j + 17) if r % 2 else x + j
+                for j in range(8))
+    return ((total + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+@pytest.mark.parametrize("against,ops,trips", [
+    ("plain", 8, 3), ("plain", 24, 1), ("plain", 8, 7), ("plain", 16, 5),
+    ("plain", 32, 2), ("pallas", br.OPS, br.TRIPS)])
+def test_alu_probe_closed_form(request, against, ops, trips):
+    """The closed form against the plain version at small odd and even
+    round counts, and against the Pallas probe in interpret mode at the
+    full OPS x TRIPS, so the full-size expectation does not rest on the
+    plain loop alone."""
+    x = np.random.default_rng(1).integers(-2**31, 2**31, (br.ROWS, 256),
+                                          dtype=np.int64).astype(np.int32)
+    want = probe_closed_form(x, ops, trips)
+    if against == "plain":
+        got = br.alu_probe_ref(torch.from_numpy(x.ravel()), ops,
+                               trips).numpy().reshape(x.shape)
+    else:
+        request.getfixturevalue("cpu_jax")
+        import jax
+        import jax.numpy as jnp
+        from jax.experimental import pallas as pl
+
+        import ribbit_tpu.bench_roofline as jbr
+
+        assert (jbr.OPS, jbr.TRIPS) == (ops, trips)
+        got = np.asarray(pl.pallas_call(
+            jbr._alu_kernel,
+            out_shape=jax.ShapeDtypeStruct(x.shape, jnp.int32),
+            interpret=True)(jnp.asarray(x)))
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+
+
 def test_alu_probe_checks_its_arguments():
     x = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -94,6 +138,43 @@ def test_sass_loop_counts_the_longest_loop():
                                "ISETP": 1}
     with pytest.raises(RuntimeError, match="no backward branch"):
         br.sass_loop("        /*0000*/  EXIT ;\n")
+
+
+def loop_listing(opcodes) -> str:
+    """A SASS listing whose one loop holds these opcodes in order."""
+    lines = ["        code for sm_90a", "                Function : k",
+             "        /*0000*/                   S2R R0, SR_TID.X ;",
+             ".L_x_0:"]
+    addr = 0x10
+    for op in opcodes:
+        lines.append(f"        /*{addr:04x}*/                   {op} R2, R2, "
+                     f"R3, R4 ;")
+        addr += 0x10
+    lines.append(f"        /*{addr:04x}*/                   UIADD3 UR4, UR4, "
+                 f"0x2, URZ ;")
+    lines.append(f"        /*{addr + 0x10:04x}*/               @P0 BRA "
+                 f"`(.L_x_0) ;")
+    lines.append(f"        /*{addr + 0x20:04x}*/                   EXIT ;")
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("body,folded", [
+    (["IMAD", "LOP3"] * 8 + ["ISETP"], False),
+    (["IMAD", "LOP3"] * 4 + ["IMAD"] * 4 + ["ISETP"], True),
+    (["IMAD", "LOP3"] * 7 + ["ISETP"], True)],
+    ids=["whole", "xors-dropped", "pair-fused"])
+def test_check_probe_loop_refuses_a_folded_body(body, folded):
+    """A body of two rounds covers 16 source operations: whole (8 IMAD, 8
+    LOP3, the compare) it passes; with XORs dropped in pairs, or with one
+    round's pair fused away, it holds fewer instructions than operations
+    and the guard raises."""
+    loop = br.sass_loop(loop_listing(body))
+    assert loop["instructions"] == len(body)
+    if folded:
+        with pytest.raises(RuntimeError, match="folded"):
+            br.check_probe_loop(loop, 2)
+    else:
+        br.check_probe_loop(loop, 2)
 
 
 def test_scan_and_probe_work():
