@@ -60,9 +60,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
      (scan_host), all five arrays; process_sequence(engine="python")
      against the port's host route (the C core), BED byte for byte;
      launch counts and the wall time split into the device scan, the
-     scanners and lattices, and refinement.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of jax or ribbit_tpu.
+     scanners and lattices, and refinement;
+ 12. the parallel routes (ribbit_tpu_torch.parallel), whose device lists
+     repeat the one card: distributed_process_contig on chr21 over
+     [cuda:0, cuda:0] (BED against phase 4's host-route chr21 lines, K1
+     and K2 launches against the chunk count, the wall time split into
+     extraction, stitching, replay and refinement) and over the default
+     device list on phase 5's contig at 256 Ki-bp chunks; the sharded scan
+     on four 2 Mi-bp chunks of chr21 with N runs (eq and counts against
+     eq_sum8_ref and the window rule, exact K10 launches); the split SSW
+     forward on phase 5's round-1 fits() pairs and their terminate pairs,
+     bit-equal to one device; refine_batched_sharded on a 53,543 bp
+     contig against the host route (K3 and K4 launched); two CLI
+     processes in one gloo group (--coordinator) on phase 5's contig,
+     rank 0's BED against the host route's.
+The line before the last is {"kernels": [...]} (launches: phases 4, 6,
+8, 9 and 11; parallel_launches: phase 12); the last line is {"ok": true,
+"device": {...}}.  Imports nothing of jax or ribbit_tpu.
 """
 
 from __future__ import annotations
@@ -111,6 +125,14 @@ CLOCK_WINDOW_MS = 1500         # the probe's reps while nvidia-smi samples
 # -M past the Pallas eq/sum8 kernel's cap; the event kernel's shifts then
 # reach ten words ahead
 BIG_M = 300
+# phase 12: chunks of the route contig on the default device list and in
+# the two multi-host processes (4 chunks of 1.03 Mb); the sharded scan's
+# chunks of chr21; the split refinement's contig (53,543 bp, 1,170
+# round-1 pairs, 25 of them past fits()); the processes' time limit
+ROUTE_CHUNK = 262_144
+SCAN_CHUNK, SCAN_CHUNKS = 2 << 20, 4
+REFINE_LOCI = 20
+MULTIHOST_TIMEOUT = 300
 
 
 def log(*a):
@@ -461,7 +483,7 @@ def phase_e2e(se, genome, cfg, dev):
             f"C replay {scan_s:.2f} s, "
             f"C refinement {refine_s:.2f} s ({len(seeds)} seeds); "
             f"C generation (capture) {cap_s:.2f} s")
-    return launches, port_s, host_s, mb, port_lines
+    return launches, port_s, host_s, mb, port_lines, host_lines
 
 
 def same_bed(got, want, what: str):
@@ -742,7 +764,7 @@ def phase_ssw(seq: str, cfg, dev, rate):
                                      f"{fwd[0, i]}, not the clamp")
             log(f"  {name}: the {CLAMP_BP} bp match scores {fwd[0, i]} "
                 "(clamped)")
-    return stats
+    return stats, pairs
 
 
 def phase_batched(seq: str, cfg, dev):
@@ -1060,6 +1082,17 @@ def phase_eq_sum8(sd, cases, cfgs, dev, rate):
     return stats
 
 
+def _timed(spent: dict, key: str, fn):
+    """fn, with its wall time added to spent[key] on each call."""
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spent[key] += time.perf_counter() - t0
+    return wrapped
+
+
 def phase_python_engine(sd, se, seq: str, cfg, dev):
     """The dense scan on the card against the numpy spec, then the Python
     engine end to end against the C core; launches and the time split."""
@@ -1087,20 +1120,10 @@ def phase_python_engine(sd, se, seq: str, cfg, dev):
 
     spent = {"device scan": 0.0, "scanners and lattices": 0.0,
              "refinement": 0.0}
-
-    def timed(key, fn):
-        def wrapped(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                spent[key] += time.perf_counter() - t0
-        return wrapped
-
     saved = (sd.scan_arrays, host.python_seeds, host._refine_seeds)
-    sd.scan_arrays = timed("device scan", saved[0])
-    host.python_seeds = timed("scanners and lattices", saved[1])
-    host._refine_seeds = timed("refinement", saved[2])
+    sd.scan_arrays = _timed(spent, "device scan", saved[0])
+    host.python_seeds = _timed(spent, "scanners and lattices", saved[1])
+    host._refine_seeds = _timed(spent, "refinement", saved[2])
     sd.eq_sum8.launches = 0
     se.anchor_planes.launches = 0
     try:
@@ -1127,6 +1150,266 @@ def phase_python_engine(sd, se, seq: str, cfg, dev):
         + ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
         + f", the rest {rest:.2f} s; the C core {core_s:.2f} s")
     return launches["eq_sum8"]
+
+
+def parallel_chr21(se, chrom: str, want_bed, cfg, devs):
+    """distributed_process_contig on chr21 over `devs`: BED against the
+    host route's chr21 lines, K1/K2 launches against the chunk count, and
+    the wall time split into extraction, stitching, replay and
+    refinement."""
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.eventstitch import segment_bounds
+    from ribbit_tpu_torch.parallel import distributed as dist_mod
+
+    nchunks = len(segment_bounds(len(chrom), 8 << 20)) - 1
+    spent = dict.fromkeys(("extraction", "stitching", "replay",
+                           "refinement"), 0.0)
+    saved = (dist_mod._sharded_extract, dist_mod._clip_chunk,
+             dist_mod.merge_clipped, CoreSession.set_events,
+             CoreSession.scan, CoreSession.refine)
+    dist_mod._sharded_extract = _timed(spent, "extraction", saved[0])
+    dist_mod._clip_chunk = _timed(spent, "stitching", saved[1])
+    dist_mod.merge_clipped = _timed(spent, "stitching", saved[2])
+    CoreSession.set_events = _timed(spent, "replay", saved[3])
+    CoreSession.scan = _timed(spent, "replay", saved[4])
+    CoreSession.refine = _timed(spent, "refinement", saved[5])
+    se.anchor_planes.launches = 0
+    se.event_words.launches = 0
+    try:
+        t = time.perf_counter()
+        lines = dist_mod.distributed_process_contig("chr21", chrom, cfg,
+                                                    devices=devs)
+        wall = time.perf_counter() - t
+    finally:
+        (dist_mod._sharded_extract, dist_mod._clip_chunk,
+         dist_mod.merge_clipped, CoreSession.set_events, CoreSession.scan,
+         CoreSession.refine) = saved
+    launches = {"anchor_planes": se.anchor_planes.launches,
+                "event_words": se.event_words.launches}
+    log(f"  chr21 ({len(chrom)} bp, {nchunks} chunks) over "
+        f"{[str(d) for d in devs]}: launches {launches}")
+    if set(launches.values()) != {nchunks}:
+        raise AssertionError(f"want {nchunks} launches of K1 and K2, got "
+                             f"{launches}")
+    same_bed(lines, want_bed, "the host route's chr21 lines (phase 4)")
+    log(f"  distributed chr21 {wall:.2f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
+        + f", the rest {wall - sum(spent.values()):.2f} s")
+    return launches
+
+
+def parallel_scan(sd, se, chrom: str, cfg, devs):
+    """sharded_scan_step on four 2 Mi-bp chunks of chr21 that hold N runs:
+    eq and counts against eq_sum8_ref and the window rule on the card,
+    total against their sum, K10 launches against the chunk count."""
+    from ribbit_tpu_torch.config import WINDOW_LENGTH
+    from ribbit_tpu_torch.encode import encode
+    from ribbit_tpu_torch.parallel import sharded_scan_step
+
+    C = SCAN_CHUNK
+    code, n_mask = encode(chrom)
+    starts = [a for a in range(0, len(chrom) - C + 1, C)
+              if n_mask[a:a + C].any()][:SCAN_CHUNKS]
+    codes = np.stack([code[a:a + C] for a in starts])
+    nmasks = np.stack([n_mask[a:a + C] for a in starts])
+    del code, n_mask
+    step = sharded_scan_step(devs, cfg)
+    sd.eq_sum8.launches = 0
+    t = time.perf_counter()
+    eq, counts, total = step(codes, nmasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = sd.eq_sum8.launches
+    nw = C - WINDOW_LENGTH + 1
+    for b in range(len(starts)):
+        c = torch.from_numpy(codes[b].view(np.uint8)).to(devs[0])
+        n = torch.from_numpy(nmasks[b].view(np.uint8)).to(devs[0])
+        eq_r, sum8_r = sd.eq_sum8_ref(c, cfg)
+        nfree = se._win8(n)[:nw] == 0
+        counts_r = ((sum8_r[:, :nw] >= 7) & nfree).sum(dim=1)
+        if not torch.equal(eq[b], eq_r.view(torch.bool)) or \
+                not torch.equal(counts[b].to(torch.int64), counts_r):
+            raise AssertionError(f"sharded scan chunk {b} (at {starts[b]}) "
+                                 "differs from the plain computation")
+        del eq_r, sum8_r
+    if int(total[0]) != int(counts.sum()):
+        raise AssertionError(f"total {int(total[0])} != the counts' sum")
+    log(f"  sharded scan, {len(starts)} chunks of {C} bp at {starts} over "
+        f"{[str(d) for d in devs]}: eq and counts equal eq_sum8_ref's, "
+        f"total {int(total[0])}, {int(nmasks.sum())} N; eq_sum8 launches "
+        f"{launches}; step {wall:.3f} s")
+    if launches != len(starts):
+        raise AssertionError(f"want {len(starts)} eq_sum8 launches, got "
+                             f"{launches}")
+    return launches
+
+
+def parallel_forward(pairs, devs):
+    """batch_forward_sharded on phase 5's round-1 fits() pairs and their
+    terminate-mode pairs, bit-equal on all four outputs to the single-
+    device ssw_forward_small; K3 launches."""
+    from ribbit_tpu_torch import align_kernels as ak
+    from ribbit_tpu_torch.parallel.sharded_refine import \
+        batch_forward_sharded
+
+    small = [(r, f) for r, f in pairs if ak.fits(r.shape[0], f.shape[0])]
+    reads, refs = [r for r, _ in small], [f for _, f in small]
+    ak.ssw_forward_small.launches = 0
+    t = time.perf_counter()
+    got = batch_forward_sharded(reads, refs, None, devices=devs)
+    wall = time.perf_counter() - t
+    launches = ak.ssw_forward_small.launches
+    want = ak.forward(ak.ssw_forward_small, reads, refs, None, devs[0])
+    fwd = np.stack(want)
+    rev = reverse_pairs(reads, refs, fwd)
+    ak.ssw_forward_small.launches = 0
+    got_rev = batch_forward_sharded(*rev, devices=devs)
+    launches_rev = ak.ssw_forward_small.launches
+    want_rev = ak.forward(ak.ssw_forward_small, *rev, devs[0])
+    for what, g, w in (("forward", got, want),
+                       ("terminate", got_rev, want_rev)):
+        for k, name in enumerate(("score", "end_ref", "end_read",
+                                  "first_hit")):
+            if not np.array_equal(g[k], w[k]):
+                raise AssertionError(f"split {what} forward: {name} "
+                                     "differs from the single device's")
+    log(f"  split SSW forward over {[str(d) for d in devs]}: {len(reads)} "
+        f"round-1 pairs and {len(rev[0])} terminate pairs bit-equal to one "
+        f"device; ssw_forward_small launches {launches} + {launches_rev}; "
+        f"forward batch {wall:.3f} s")
+    if launches != len(devs) or launches_rev != len(devs):
+        raise AssertionError(f"want {len(devs)} launches a batch, got "
+                             f"{launches} and {launches_rev}")
+    return launches + launches_rev
+
+
+def parallel_refine(seq: str, cfg, devs):
+    """refine_batched_sharded over `devs` on a small contig against the
+    host route; K3 and K4 launches (the oversized pairs on devs[0])."""
+    from ribbit_tpu_torch import align_kernels as ak
+    from ribbit_tpu_torch import host
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.encode import encode
+    from ribbit_tpu_torch.parallel.sharded_refine import \
+        refine_batched_sharded
+
+    code, n_mask = encode(seq)
+    sess = CoreSession(code, n_mask, cfg, nthreads=os.cpu_count() or 1)
+    ak.ssw_forward_small.launches = 0
+    ak.ssw_forward_large.launches = 0
+    try:
+        t = time.perf_counter()
+        lines = refine_batched_sharded(sess.scan(), seq, "refine", code,
+                                       n_mask, sess, cfg, devices=devs)
+        wall = time.perf_counter() - t
+    finally:
+        sess.close()
+    launches = {"ssw_forward_small": ak.ssw_forward_small.launches,
+                "ssw_forward_large": ak.ssw_forward_large.launches}
+    log(f"  refine_batched_sharded on {len(seq)} bp over "
+        f"{[str(d) for d in devs]}: {wall:.2f} s, launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"an SSW kernel was not launched: {launches}")
+    same_bed(lines, host.process_sequence("refine", seq, cfg),
+             "the port's host route")
+    return launches
+
+
+def parallel_multihost(fa: str, want_bed, dev):
+    """Two CLI processes on `dev` in one gloo group: both exit 0 within
+    MULTIHOST_TIMEOUT, rank 0's BED equals the host route's."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
+        out = os.path.join(tmp, "mh.bed")
+        procs = []
+        try:
+            for pid in range(2):
+                cmd = [sys.executable, "-m", "ribbit_tpu_torch.cli",
+                       "-i", fa, "--device", str(dev), "--coordinator",
+                       f"localhost:{port}", "--num-processes", "2",
+                       "--process-id", str(pid), "--chunk-size",
+                       str(ROUTE_CHUNK), "--timing"]
+                if pid == 0:
+                    cmd += ["-o", out]
+                procs.append(subprocess.Popen(
+                    cmd, cwd=root, env=env, stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, text=True))
+            t = time.perf_counter()
+            errs = [p.communicate(timeout=MULTIHOST_TIMEOUT)[1]
+                    for p in procs]
+            wall = time.perf_counter() - t
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for pid, (p, err) in enumerate(zip(procs, errs)):
+            if p.returncode != 0:
+                raise AssertionError(f"multihost rank {pid} exited "
+                                     f"{p.returncode}:\n{err[-3000:]}")
+            for line in err.splitlines():
+                if line.startswith(("[p", "Done:")):
+                    log(f"  rank {pid}: {line}")
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+    same_bed(lines, want_bed, "the host route (rank 0 of two processes)")
+    log(f"  two processes on {dev}: {wall:.2f} s from launch to exit")
+
+
+def phase_parallel(sd, se, chrom: str, chr21_bed, route: str, pairs, cfg,
+                   dev):
+    """The parallel routes on the card (two shards that share one card):
+    distributed chr21, the default device list, the sharded scan, the
+    split SSW forward and refinement, and two multi-host processes.
+    Returns the kernels' launches in these runs."""
+    from ribbit_tpu_torch import host
+    from ribbit_tpu_torch.eventstitch import segment_bounds
+    from ribbit_tpu_torch.parallel import distributed as dist_mod
+    from ribbit_tpu_torch.parallel import make_mesh
+    from ribbit_tpu_torch.sim import simulate
+
+    devs = make_mesh(devices=[dev, dev])
+    launches = parallel_chr21(se, chrom, chr21_bed, cfg, devs)
+
+    mesh = make_mesh()
+    route_bed = host.process_sequence("route", route, cfg)
+    se.anchor_planes.launches = 0
+    se.event_words.launches = 0
+    t = time.perf_counter()
+    lines = dist_mod.distributed_process_contig("route", route, cfg,
+                                                chunk_size=ROUTE_CHUNK)
+    wall = time.perf_counter() - t
+    got = (se.anchor_planes.launches, se.event_words.launches)
+    log(f"  the default device list {[str(d) for d in mesh]} on "
+        f"{len(route)} bp at {ROUTE_CHUNK} bp chunks: {wall:.2f} s, "
+        f"launches (K1, K2) {got}")
+    nchunks = len(segment_bounds(len(route), ROUTE_CHUNK)) - 1
+    if got != (nchunks, nchunks):
+        raise AssertionError(f"want {nchunks} launches of K1 and K2, got "
+                             f"{got}")
+    same_bed(lines, route_bed, "the host route")
+    for k, n in zip(("anchor_planes", "event_words"), got):
+        launches[k] += n
+
+    launches["eq_sum8"] = parallel_scan(sd, se, chrom, cfg, devs)
+    launches["ssw_forward_small"] = parallel_forward(pairs, devs)
+    small = simulate(num_loci=REFINE_LOCI, seed=ROUTE_SEED,
+                     n_block_rate=0.1, name="refine").sequence
+    for k, n in parallel_refine(small, cfg, devs).items():
+        launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
+        fa = os.path.join(tmp, "route.fa")
+        write_fasta(fa, [("route", route)])
+        parallel_multihost(fa, route_bed, dev)
+    log(f"  launches in the parallel routes: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1181,15 +1464,17 @@ def main() -> int:
 
     log("[4] event extraction end to end through the port's CLI, "
         "--backend gpu")
-    launches, port_s, host_s, mb, gpu_bed = phase_e2e(se, genome, cfgs[0],
-                                                      dev)
+    launches, port_s, host_s, mb, gpu_bed, host_bed = phase_e2e(
+        se, genome, cfgs[0], dev)
+    chr21_bed = [line for line in host_bed if line.startswith("chr21\t")]
+    del host_bed
     log(f"  e2e on {card}: port {port_s:.2f} s ({mb / port_s:.2f} Mbp/s), "
         f"host route {host_s:.2f} s ({mb / host_s:.2f} Mbp/s), "
         f"{os.cpu_count()} host cores")
 
     log("[5] SSW kernels against their plain version on the card "
         "(bit-equal)")
-    ssw = phase_ssw(route, cfgs[0], dev, rate)
+    ssw, pairs = phase_ssw(route, cfgs[0], dev, rate)
 
     log(f"[6] device-batched refinement end to end ({len(route)} bp, "
         "RIBBIT_BATCHED_REFINE=1)")
@@ -1205,7 +1490,7 @@ def main() -> int:
         "C replay and refinement)")
     launches["dense_masks"] = phase_dense_path(sm, genome, cfgs[0], dev,
                                                gpu_bed)
-    del chrom, genome, gpu_bed
+    del genome, gpu_bed
 
     log("[9] the int32 probe against its plain version, its SASS count, "
         "and the port's bench")
@@ -1219,6 +1504,12 @@ def main() -> int:
     log(f"[11] the Python engine end to end ({len(route)} bp, dense scan "
         "on the card)")
     launches["eq_sum8"] = phase_python_engine(sd, se, route, cfgs[0], dev)
+
+    log("[12] the parallel routes on the card (two shards of one card, two "
+        "processes)")
+    par = phase_parallel(sd, se, chrom, chr21_bed, route, pairs, cfgs[0],
+                         dev)
+    del chrom, chr21_bed, pairs
 
     src = "ribbit_tpu_torch/csrc/scan_events.cu"
     replaces = {"anchor_planes": "ribbit_tpu/scan_events_pallas.py:95",
@@ -1257,6 +1548,8 @@ def main() -> int:
                     "replaces": "ribbit_tpu/scan_pallas.py:44",
                     "launches": launches["eq_sum8"], **eq_sum8,
                     "library_ms": None})
+    for k in kernels:
+        k["parallel_launches"] = par.get(k["name"], 0)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .backend import require_cuda
+from .backend import count_launch, require_cuda
 
 GAP_O = 3
 GAP_E = 1
@@ -307,7 +307,7 @@ def ssw_forward_small(p: Pairs) -> torch.Tensor:
     out, launch = prepare(p, SMALL_LANES, "ribbit_ssw_forward_small")
     if p.n:
         launch()
-        ssw_forward_small.launches += 1
+        count_launch(ssw_forward_small)
     return out
 
 
@@ -324,7 +324,7 @@ def ssw_forward_large(p: Pairs) -> torch.Tensor:
     out, launch = prepare(p, LARGE_LANES, "ribbit_ssw_forward_large")
     if p.n:
         launch()
-        ssw_forward_large.launches += 1
+        count_launch(ssw_forward_large)
     return out
 
 

@@ -10,6 +10,7 @@ stderr.  Neither falls back to the host: without CUDA a gpu run on
 from __future__ import annotations
 
 import sys
+import threading
 
 import torch
 
@@ -32,3 +33,13 @@ def require_cuda(device) -> None:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested, but "
                            "torch.cuda.is_available() is False")
+
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches`: a locked read-modify-write,
+    since the parallel routes launch from one thread per device."""
+    with _launch_lock:
+        wrapper.launches += 1

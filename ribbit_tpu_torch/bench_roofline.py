@@ -15,8 +15,8 @@ counts exist once.
              over its time.  A compiler folds such chains, so a rate taken
              from the source's operation count could be impossible; a rate
              above 105% of spec_int32_rate raises, and so does a loop body
-             with fewer instructions than the operations it covers
-             (check_probe_loop).
+             with fewer chain instructions (its compare left out) than
+             the operations it covers (check_probe_loop).
   sm_clocks  the SM clocks nvidia-smi reads while a run is on the card.
   scan_work / probe_work
              the bytes and int32 operations of each kernel's function, from
@@ -41,7 +41,7 @@ import time
 
 import torch
 
-from .backend import require_cuda
+from .backend import count_launch, require_cuda
 from .config import RibbitConfig
 from .scan_events import OUT_ROWS, nsp_of
 
@@ -230,7 +230,7 @@ def alu_probe(x: torch.Tensor, ops: int, trips: int) -> torch.Tensor:
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"alu_probe: CUDA error {rc} at launch")
-    alu_probe.launches += 1
+    count_launch(alu_probe)
     return out
 
 
@@ -287,17 +287,22 @@ def sass_loop(sass: str) -> dict:
 
 def check_probe_loop(loop: dict, loop_rounds: int) -> None:
     """The folding guard: raises if the counted loop body (sass_loop) holds
-    fewer integer lane instructions than the CHAINS x loop_rounds source
-    operations it covers.  The launcher runs whole bodies only, so every
-    XOR chain sees an even number of rounds and returns to x + j: a body
-    that dropped XORs in pairs, or fused two operations into one
-    instruction, would still equal the plain version."""
+    fewer chain instructions than the CHAINS x loop_rounds source
+    operations it covers.  The loop's own compares (the *SETP opcodes)
+    are not chain instructions and are left out, so a body one fused
+    operation short does not pass on its compare.  The launcher runs whole
+    bodies only, so every XOR chain sees an even number of rounds and
+    returns to x + j: a body that dropped XORs in pairs, or fused two
+    operations into one instruction, would still equal the plain
+    version."""
     ops = CHAINS * loop_rounds
-    if loop["instructions"] < ops:
-        raise RuntimeError(f"the int32 probe's loop body holds "
-                           f"{loop['instructions']} integer instructions for "
-                           f"{ops} source operations: the compiler folded "
-                           f"the chains {loop['opcodes']}")
+    chain = sum(n for op, n in loop["opcodes"].items()
+                if not op.endswith(("SETP", "SETP2")))
+    if chain < ops:
+        raise RuntimeError(f"the int32 probe's loop body holds {chain} "
+                           f"chain instructions for {ops} source "
+                           f"operations: the compiler folded the chains "
+                           f"{loop['opcodes']}")
 
 
 def probe_sass() -> str:

@@ -10,8 +10,14 @@ versions, for tests).  With RIBBIT_BATCHED_REFINE set, refinement runs
 through refine_batched with its SSW forward passes on --device, on either
 backend; with RIBBIT_PY_REFINE set, --backend host refines through the
 Python engine's refinement.  The Python engine itself has no flag, as in
-ribbit_tpu.cli: call process_fasta(..., engine="python").  The
-multi-host flags wait for the port's multi-host layer and are refused.
+ribbit_tpu.cli: call process_fasta(..., engine="python").
+
+Multi-host mode (--coordinator HOST:PORT --num-processes N --process-id
+I, one command per process) runs every contig through
+parallel.multihost over a gloo process group, the event kernels on
+--device (every local CUDA device for the default cuda); process 0 writes
+the output.  It takes the gpu route's event extraction and the C core's
+refinement, and refuses --resume and --backend host.
 """
 
 from __future__ import annotations
@@ -73,11 +79,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(<out>.manifest.json) and skip already-finished "
                         "contigs on restart")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host mode: not supported by this port yet")
+                   help="multi-host mode: address of process 0's "
+                        "rendezvous (torch.distributed, gloo); every "
+                        "process gets the same value and reads the same "
+                        "FASTA, and process 0 writes the output")
     p.add_argument("--num-processes", type=int, default=1,
-                   help="multi-host mode: not supported by this port yet")
+                   help="multi-host mode: number of processes in the "
+                        "group (with --coordinator)")
     p.add_argument("--process-id", type=int, default=0,
-                   help="multi-host mode: not supported by this port yet")
+                   help="multi-host mode: this process's rank, 0 to "
+                        "--num-processes - 1 (with --coordinator)")
     p.add_argument("--chunk-size", type=int, default=None, metavar="BP",
                    help="host backend: process contigs longer than 1.5x "
                         "this many bp in bounded-memory chunks, as "
@@ -105,13 +116,6 @@ def main(argv=None) -> int:
         print(f"ribbit-tpu-torch: error: input file not found: "
               f"{args.input_file}", file=sys.stderr)
         return 2
-    if (args.coordinator is not None or args.num_processes != 1
-            or args.process_id != 0):
-        print("ribbit-tpu-torch: error: multi-host mode (--coordinator, "
-              "--num-processes, --process-id) is not supported by the "
-              "PyTorch port yet; use ribbit_tpu.cli", file=sys.stderr)
-        return 2
-
     cfg = RibbitConfig.create(
         min_motif=args.min_motif_length,
         max_motif=args.max_motif_length,
@@ -119,6 +123,23 @@ def main(argv=None) -> int:
         min_units=_maybe_int(args.min_units),
         perfect_units=_maybe_int(args.perfect_units),
     )
+    if args.coordinator is not None:
+        if args.resume:
+            print("ribbit-tpu-torch: --resume is not supported with "
+                  "--coordinator", file=sys.stderr)
+            return 2
+        if args.backend == "host":
+            print("ribbit-tpu-torch: error: multi-host mode runs the gpu "
+                  "route; --backend host is single-process",
+                  file=sys.stderr)
+            return 2
+        try:
+            require_cuda(args.device)
+        except RuntimeError as exc:
+            print(f"ribbit-tpu-torch: error: {exc}", file=sys.stderr)
+            return 2
+        return _main_multihost(args, cfg)
+
     backend = resolve_backend(args.backend)
     if backend == "gpu" or batched_refine_requested():
         try:
@@ -199,6 +220,61 @@ def main(argv=None) -> int:
     print(f"Done: {total} bp in {elapsed:.2f}s "
           f"({total / max(elapsed, 1e-9) / 1e6:.3f} Mbp/s) [{backend}]",
           file=sys.stderr)
+    return 0
+
+
+def _main_multihost(args, cfg) -> int:
+    """Multi-host mode: every process reads the same FASTA and works on
+    each contig with the others (parallel/multihost.py); process 0 writes
+    the output and the progress lines."""
+    import torch.distributed as dist
+
+    from .fasta import read_fasta
+    from .parallel.multihost import (ensure_initialized,
+                                     multihost_process_contig, shutdown)
+    from .parallel.sharded_scan import make_mesh
+
+    ensure_initialized(args.coordinator, args.num_processes, args.process_id)
+    # the default, a bare cuda, means every local card
+    devices = make_mesh(devices=None if args.device == "cuda"
+                        else [args.device])
+    is_main, nproc = dist.get_rank() == 0, dist.get_world_size()
+    out = None
+    if is_main:
+        if args.output_file:
+            out = open(args.output_file, "w")
+        elif args.stderr_output:
+            out = sys.stderr
+        else:
+            out = sys.stdout
+        print(f"Minimum motif:\t{cfg.min_motif}", file=sys.stderr)
+        print(f"Maximum motif:\t{cfg.max_motif}", file=sys.stderr)
+        print("Purity threshold: 0.85", file=sys.stderr)
+
+    t0 = time.time()
+    total = 0
+    try:
+        for name, seq in read_fasta(args.input_file):
+            if is_main:
+                print(f"Processing sequence {name}", file=sys.stderr)
+            total += len(seq)
+            lines = multihost_process_contig(
+                name, seq, cfg, chunk_size=args.chunk_size or (8 << 20),
+                workers=args.workers, timing=args.timing, devices=devices)
+            if is_main:
+                for line in lines:
+                    out.write(line + "\n")
+                out.flush()
+    finally:
+        if is_main and args.output_file:
+            out.close()
+    elapsed = time.time() - t0
+    shutdown()
+    if is_main:
+        print(f"Done: {total} bp in {elapsed:.2f}s "
+              f"({total / max(elapsed, 1e-9) / 1e6:.3f} Mbp/s) "
+              f"[{nproc} processes, {len(devices)} "
+              "device(s) each]", file=sys.stderr)
     return 0
 
 

@@ -35,6 +35,14 @@ time; it holds about 510 B/bp on the host at the default config.
 `--backend host` and, for the core engine, contigs of MAX_CONTIG bp or
 more go to the port's host route (host.py).  There is no fallback: a
 device, build or launch failure raises.
+
+The multi-device and multi-host routes (parallel/, the counterpart of
+ribbit_tpu/parallel/) extract each chunk through scan_events_device as
+this module's segments do.  Two deviations from the JAX package there:
+no pow2 event-capacity autotune (ribbit_tpu/parallel/distributed.py:40,
+67-114; jnp.nonzero needs a static size, the C decode grows its own
+buffers), and no pow2 length bucket or dummy all-N rows for the chunk
+windows (:50-52; XLA's static shapes), so the windows stay ragged.
 """
 
 from __future__ import annotations

@@ -11,11 +11,14 @@ order keys (seed index, then recursion path), and process_seed's flank
 recursion becomes rounds of pending items assembled depth-first.
 
 The forward passes run on `device` (cuda by default; cpu runs the kernels'
-plain PyTorch version).  Not ported: the JAX package's forward_override
-(the mesh-sharded forward) and use_device=False (pair-by-pair numpy
-alignment), which no caller of the port uses.  The host traceback (align.banded_sw,
-pure Python) dominates this route's time, so the C pool stays the
-pipeline's default and this route runs when RIBBIT_BATCHED_REFINE is set.
+plain PyTorch version), or on a list of devices: the fits() pairs then
+split over the list (parallel/sharded_refine.py, the counterpart of the
+JAX package's mesh-sharded forward, which it passed in as
+forward_override) and the oversized pairs run on the first device.  Not
+ported: use_device=False (pair-by-pair numpy alignment), which no caller
+of the port uses.  The host traceback (align.banded_sw, pure Python)
+dominates this route's time, so the C pool stays the pipeline's default
+and this route runs when RIBBIT_BATCHED_REFINE is set.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from .config import RibbitConfig, CONTINUOUS_ONES_THRESHOLD
 from . import align_kernels, bitutils
 from .align import _TRANSLATE, banded_sw, _mark_mismatch, Alignment
 from .cigarproc import process_cigar_with_pruning, process_cigar_motifwise
+from .parallel.sharded_refine import batch_forward_sharded
 from .refine import (format_purity, _ppr_length, _build_ppr,
                      _n_trimmed_length, most_frequent_longer_motif,
                      possible_motifs, calculate_motif_units)
@@ -40,10 +44,13 @@ def _translate_codes(s: str) -> np.ndarray:
 
 def _batch_forward_split(reads, refs, terms, device):
     """Dispatch a forward batch across the two kernels: ssw_forward_small
-    (one pair per thread) for pairs within fits(), ssw_forward_large (one
-    pair per block) for oversized pairs, as the JAX package splits them
+    (a warp per pair) for pairs within fits(), split over `device` when it
+    is a list, and ssw_forward_large (a block per pair) for oversized
+    pairs, on the list's first device, as the JAX package splits them
     between its two Pallas kernels.  Returns per-pair (score, end_ref,
     end_read, first_hit) in the input order."""
+    devices = (list(device) if isinstance(device, (list, tuple))
+               else [device])
     n = len(reads)
     small = [i for i in range(n)
              if align_kernels.fits(reads[i].shape[0], refs[i].shape[0])]
@@ -52,23 +59,23 @@ def _batch_forward_split(reads, refs, terms, device):
     end_read = np.empty(n, np.int64)
     first_hit = np.empty(n, np.int64)
 
-    def run(idx, kernel):
+    def run(idx, forward):
         if not idx:
             return
         t = None if terms is None else [terms[i] for i in idx]
-        s, er, erd, fh = align_kernels.forward(
-            kernel, [reads[i] for i in idx], [refs[i] for i in idx], t,
-            device)
+        s, er, erd, fh = forward([reads[i] for i in idx],
+                                 [refs[i] for i in idx], t)
         score[idx] = s
         end_ref[idx] = er
         end_read[idx] = erd
         first_hit[idx] = fh
 
-    run(small, align_kernels.ssw_forward_small)
+    run(small, lambda r, f, t: batch_forward_sharded(r, f, t, devices))
     if len(small) != n:
         small_set = set(small)
         run([i for i in range(n) if i not in small_set],
-            align_kernels.ssw_forward_large)
+            lambda r, f, t: align_kernels.forward(
+                align_kernels.ssw_forward_large, r, f, t, devices[0]))
     return score, end_ref, end_read, first_hit
 
 
@@ -128,7 +135,7 @@ def refine_batched(seeds: np.ndarray, sequence: str, sequence_id: str,
     """Refine the merged seed stream with batched alignment rounds.
 
     sess: CoreSession (overlay longest-run queries).  The forward passes
-    run on `device`.  Returns BED lines in the sequential path's exact
+    run on `device`, or split over a list of devices (_batch_forward_split).  Returns BED lines in the sequential path's exact
     order (hierarchical order keys)."""
     L = len(sequence)
     translated = _translate_codes(sequence)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import scan_events as se
+from .backend import count_launch
 from .config import (WINDOW_BITCOUNT_ANCHORED, WINDOW_BITCOUNT_SUBSTITUTION,
                      WINDOW_LENGTH, RibbitConfig)
 
@@ -91,7 +92,7 @@ def eq_sum8(code: torch.Tensor, cfg: RibbitConfig):
         sum8.data_ptr(), code.device.index,
         torch.cuda.current_stream(code.device).cuda_stream)
     se._raise_on(rc, "eq_sum8")
-    eq_sum8.launches += 1
+    count_launch(eq_sum8)
     return eq, sum8
 
 

@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from .backend import require_cuda
+from .backend import count_launch, require_cuda
 from .config import ANCHOR_SIZE, WINDOW_LENGTH, RibbitConfig
 
 OUT_ROWS = 8        # shift rows per event word (3 fields of 8 bits)
@@ -221,7 +221,7 @@ def anchor_planes(code: torch.Tensor, cfg: RibbitConfig) -> torch.Tensor:
         code.data_ptr(), L, cfg.min_shift, cfg.nshifts, out.data_ptr(), W,
         code.device.index, torch.cuda.current_stream(code.device).cuda_stream)
     _raise_on(rc, "anchor_planes")
-    anchor_planes.launches += 1
+    count_launch(anchor_planes)
     return out
 
 
@@ -256,7 +256,7 @@ def event_words(code: torch.Tensor, n_mask: torch.Tensor,
         cfg.min_shift, cfg.nshifts, ngroups, out.data_ptr(),
         code.device.index, torch.cuda.current_stream(code.device).cuda_stream)
     _raise_on(rc, "event_words")
-    event_words.launches += 1
+    count_launch(event_words)
     return out
 
 

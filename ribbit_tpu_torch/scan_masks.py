@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import scan_events as se
+from .backend import count_launch
 from .config import WINDOW_LENGTH, RibbitConfig
 
 PLANES = ("q7", "q6", "ps", "pm")
@@ -124,7 +125,7 @@ def masks(code: torch.Tensor, n_mask: torch.Tensor, anchors: torch.Tensor,
         cfg.nmotifs, out.data_ptr(), code.device.index,
         torch.cuda.current_stream(code.device).cuda_stream)
     se._raise_on(rc, "masks")
-    masks.launches += 1
+    count_launch(masks)
     return out.unbind(0)
 
 

@@ -158,23 +158,28 @@ def loop_listing(opcodes) -> str:
     return "\n".join(lines)
 
 
-@pytest.mark.parametrize("body,folded", [
-    (["IMAD", "LOP3"] * 8 + ["ISETP"], False),
-    (["IMAD", "LOP3"] * 4 + ["IMAD"] * 4 + ["ISETP"], True),
-    (["IMAD", "LOP3"] * 7 + ["ISETP"], True)],
-    ids=["whole", "xors-dropped", "pair-fused"])
-def test_check_probe_loop_refuses_a_folded_body(body, folded):
+@pytest.mark.parametrize("body,rounds,folded", [
+    (["IMAD", "LOP3"] * 8 + ["ISETP"], 2, False),
+    (["IMAD", "LOP3"] * 4 + ["IMAD"] * 4 + ["ISETP"], 2, True),
+    (["IMAD", "LOP3"] * 7 + ["ISETP"], 2, True),
+    (["IMAD", "LOP3"] * 7 + ["IMAD", "ISETP"], 2, True),
+    (["IMAD", "LOP3"] * 512 + ["ISETP"], 128, False)],
+    ids=["whole", "xors-dropped", "pair-fused", "one-short", "kept-body"])
+def test_check_probe_loop_refuses_a_folded_body(body, rounds, folded):
     """A body of two rounds covers 16 source operations: whole (8 IMAD, 8
-    LOP3, the compare) it passes; with XORs dropped in pairs, or with one
-    round's pair fused away, it holds fewer instructions than operations
-    and the guard raises."""
+    LOP3, the compare) it passes; with XORs dropped in pairs, with one
+    round's pair fused away, or with a single operation fused (15 chain
+    instructions and the compare: 16 instructions, not enough once the
+    compare is left out), it holds fewer chain instructions than
+    operations and the guard raises.  The kept probe's body of 128 rounds
+    (512 IMAD, 512 LOP3, one ISETP for 1,024 operations) passes."""
     loop = br.sass_loop(loop_listing(body))
     assert loop["instructions"] == len(body)
     if folded:
         with pytest.raises(RuntimeError, match="folded"):
-            br.check_probe_loop(loop, 2)
+            br.check_probe_loop(loop, rounds)
     else:
-        br.check_probe_loop(loop, 2)
+        br.check_probe_loop(loop, rounds)
 
 
 def test_scan_and_probe_work():

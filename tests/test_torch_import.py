@@ -34,7 +34,10 @@ import ribbit_tpu_torch, ribbit_tpu_torch.cli, ribbit_tpu_torch.pipeline
 import ribbit_tpu_torch.scan_events, ribbit_tpu_torch.backend
 import ribbit_tpu_torch.cuda_build, ribbit_tpu_torch.refine_batched
 import ribbit_tpu_torch.scan_dense, ribbit_tpu_torch.events
-import ribbit_tpu_torch.lattice
+import ribbit_tpu_torch.lattice, ribbit_tpu_torch.parallel
+import ribbit_tpu_torch.parallel.distributed
+import ribbit_tpu_torch.parallel.multihost
+import ribbit_tpu_torch.parallel.sharded_refine
 from ribbit_tpu_torch.cli import main
 from ribbit_tpu_torch.config import RibbitConfig
 

@@ -176,11 +176,22 @@ def test_over_cap_contig_goes_to_host_path(tmp_path, monkeypatch, capsys):
     assert "host's chunked path" in capsys.readouterr().err
 
 
-def test_multihost_flags_are_refused(golden_dir, capsys):
-    for extra in (["--coordinator", "h:1"], ["--num-processes", "2"],
-                  ["--process-id", "1"]):
-        assert cli_main(extra + ["-i", str(golden_dir / "g3.fa")]) == 2
-        assert "multi-host" in capsys.readouterr().err
+def test_multihost_flags_are_refused(golden_dir, tmp_path, capsys):
+    """Multi-host mode (--coordinator) refuses --resume before it joins a
+    group (the coordinator named here does not exist); --num-processes and
+    --process-id without --coordinator leave the run single-process, as in
+    ribbit_tpu.cli."""
+    fa = golden_dir / "g3.fa"
+    out = tmp_path / "out.bed"
+    assert cli_main(["--coordinator", "h:1", "--resume", "--device", "cpu",
+                     "-i", str(fa), "-o", str(out)]) == 2
+    assert "--resume is not supported with --coordinator" in \
+        capsys.readouterr().err
+    assert not out.exists()
+    for extra in (["--num-processes", "2"], ["--process-id", "1"]):
+        assert cli_main(extra + ["--device", "cpu", "-i", str(fa),
+                                 "-o", str(out)]) == 0
+        assert out.read_text() == (golden_dir / "g3.oracle.bed").read_text()
 
 
 def test_resolve_backend(capsys):
