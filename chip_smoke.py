@@ -73,14 +73,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
      bit-equal to one device; refine_batched_sharded on a 53,543 bp
      contig against the host route (K3 and K4 launched); two CLI
      processes in one gloo group (--coordinator) on phase 5's contig,
-     rank 0's BED against the host route's.
-The line before the last is {"kernels": [...]} (launches: phases 4, 6,
-8, 9 and 11; parallel_launches: phase 12); the last line is {"ok": true,
+     rank 0's BED against the host route's;
+ 13. the device-batched voter (vote_device, on no route) against the C
+     voter (ribbit_vote_longer): the call sets of the host route on phase
+     5's contig and on chr21 (RIBBIT_VOTE_DUMP); every winner of the
+     first through impl="banded" and of its buckets up to ssl 1024 through
+     impl="spec"; a sample of at most 4 batches per ssl bucket of chr21's;
+     planted tandem repeats of m = 150, 200 and 300 (a perfect one) through
+     both; per-bucket wall times, CUDA-event device spans and walk steps
+     against the C voter on one thread and on 8 in the same run.
+Before the kernels line comes {"voter": {...}} (phase 13).  The line
+before the last is {"kernels": [...]} (launches: phases 4, 6, 8, 9 and
+11; parallel_launches: phase 12); the last line is {"ok": true,
 "device": {...}}.  Imports nothing of jax or ribbit_tpu.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -133,6 +143,13 @@ ROUTE_CHUNK = 262_144
 SCAN_CHUNK, SCAN_CHUNKS = 2 << 20, 4
 REFINE_LOCI = 20
 MULTIHOST_TIMEOUT = 300
+# phase 13: chr21's sample (batches per ssl bucket), the largest ssl
+# bucket of the route set that the spec walk runs too, the planted motifs
+# (up to -M 300) and the C voter's thread pool
+VOTE_SAMPLE_BATCHES = 4
+VOTE_SPEC_MAX_SSL = 1024
+VOTE_PLANTED_M = (150, 200, 300)
+VOTE_THREADS = 8
 
 
 def log(*a):
@@ -1412,6 +1429,256 @@ def phase_parallel(sd, se, chrom: str, chr21_bed, route: str, pairs, cfg,
     return launches
 
 
+def capture_votes(name: str, seq: str):
+    """(code, n_mask, runs sorted, host G cycles): the vote runs the port's
+    host route makes on one contig, from the C core's RIBBIT_VOTE_DUMP
+    (one `seed_start ssl m cycles` line per run it votes)."""
+    from ribbit_tpu_torch.encode import encode
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
+        fa = os.path.join(tmp, f"{name}.fa")
+        dump = os.path.join(tmp, f"{name}.votes")
+        write_fasta(fa, [(name, seq)])
+        env = dict(os.environ, PYTHONPATH=root, RIBBIT_VOTE_DUMP=dump)
+        r = subprocess.run([sys.executable, "-m", "ribbit_tpu_torch.cli",
+                            "--backend", "host", "-i", fa, "-o", os.devnull],
+                           cwd=root, env=env, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"the host route on {name} exited "
+                                 f"{r.returncode}:\n{r.stderr[-3000:]}")
+        d = np.loadtxt(dump, dtype=np.int64, ndmin=2)
+    runs = sorted((int(a), int(b), int(c)) for a, b, c in d[:, :3])
+    code, n_mask = encode(seq)
+    return code, n_mask, runs, float(d[:, 3].sum()) / 1e9
+
+
+def c_voter(code, n_mask, runs, threads: int):
+    """(winners, seconds) of the C voter (ribbit_vote_longer) on one thread
+    or a pool of them (ctypes releases the GIL during each call)."""
+    from ribbit_tpu_torch.native import get_vote_lib
+
+    fn = get_vote_lib().ribbit_vote_longer
+    cp = code.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+    npp = n_mask.view(np.uint8).ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    L = code.shape[0]
+
+    def one(r):
+        return int(fn(cp, npp, L, *r))
+
+    t = time.perf_counter()
+    if threads == 1:
+        out = [one(r) for r in runs]
+    else:
+        with ThreadPoolExecutor(threads) as ex:
+            out = list(ex.map(one, runs, chunksize=64))
+    return out, time.perf_counter() - t
+
+
+def by_ssl_bucket(vd, runs) -> dict:
+    """Run indices by their bucket's padded seed length."""
+    out = {}
+    for i, (_, ssl, m) in enumerate(runs):
+        out.setdefault(vd.bucket_of(ssl, m)[0], []).append(i)
+    return dict(sorted(out.items()))
+
+
+def card_voter(vd, code, n_mask, runs, impl: str, dev):
+    """Winners of vote_longer_batch on the card, one timed call per ssl
+    bucket after a one-run warm-up, and per bucket: runs, batches, the
+    call's wall time (packing, copies, walks and prefix votes), the CUDA
+    events' span around its bucket kernels, walk steps and overflows."""
+    name = "_vote_bucket" if impl == "banded" else "_vote_bucket_spec"
+    kern = getattr(vd, name)
+    spans = []
+
+    def evented(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = kern(*a, **kw)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    out = [0] * len(runs)
+    stats = {}
+    setattr(vd, name, evented)
+    try:
+        for ssl_pad, idxs in by_ssl_bucket(vd, runs).items():
+            part = [runs[i] for i in idxs]
+            vd.vote_longer_batch(code, n_mask, part[:1], impl=impl,
+                                 device=dev)
+            torch.cuda.synchronize()
+            spans.clear()
+            steps = vd.vote_longer_batch.steps
+            ovf = vd.vote_longer_batch.overflows
+            t = time.perf_counter()
+            got = vd.vote_longer_batch(code, n_mask, part, impl=impl,
+                                       device=dev)
+            wall = time.perf_counter() - t
+            torch.cuda.synchronize()
+            stats[ssl_pad] = {
+                "runs": len(part), "batches": len(spans),
+                "wall_ms": wall * 1e3,
+                "device_ms": sum(a.elapsed_time(b) for a, b in spans),
+                "steps": vd.vote_longer_batch.steps - steps,
+                "overflows": vd.vote_longer_batch.overflows - ovf}
+            for i, g in zip(idxs, got):
+                out[i] = g
+    finally:
+        setattr(vd, name, kern)
+    return out, stats
+
+
+def c_by_bucket(vd, code, n_mask, runs) -> dict:
+    """The C voter's time per ssl bucket, on one thread and on
+    VOTE_THREADS."""
+    out = {}
+    for ssl_pad, idxs in by_ssl_bucket(vd, runs).items():
+        part = [runs[i] for i in idxs]
+        out[ssl_pad] = {"c1_ms": c_voter(code, n_mask, part, 1)[1] * 1e3,
+                        "c8_ms": c_voter(code, n_mask, part,
+                                         VOTE_THREADS)[1] * 1e3}
+    return out
+
+
+def same_winners(got, want, runs, what: str):
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad:
+        i = bad[0] if bad else min(len(got), len(want))
+        raise AssertionError(f"{what}: {len(bad)} winner(s) differ from the "
+                             f"C voter's, first run {runs[i]}: "
+                             f"{got[i] if i < len(got) else None} vs "
+                             f"{want[i] if i < len(want) else None}")
+    log(f"  {what}: all {len(got)} winners equal the C voter's")
+
+
+def planted_vote(m: int, perfect: bool, seed: int = 5):
+    """(code, n_mask, run): a tandem repeat of an m bp unit around a run of
+    ssl = 3m + 17 at seed_start 10, exact or with a substitution, shift or
+    N at every twelfth position."""
+    rng = np.random.default_rng(seed + m)
+    ss, ssl = 10, 3 * m + 17
+    L = ss + ssl + m + 40
+    unit = rng.integers(0, 4, m, dtype=np.int8)
+    code = np.tile(unit, L // m + 1)[:L].copy()
+    n_mask = np.zeros(L, dtype=bool)
+    if not perfect:
+        pos = rng.choice(L, size=L // 12, replace=False)
+        kind = rng.integers(0, 3, pos.size)
+        code[pos[kind == 0]] = rng.integers(0, 4, int((kind == 0).sum()))
+        for p in pos[kind == 1][:4]:
+            code[p:] = np.roll(code[p:], 1)
+        n_mask[pos[kind == 2]] = True
+    return code, n_mask, (ss, ssl, m)
+
+
+def log_voter_table(stats: dict, cstats: dict, label: str):
+    log(f"  {label}: ssl bucket, runs, batches, card wall ms, device span "
+        "ms, walk steps, overflows, C voter ms on 1 and "
+        f"{VOTE_THREADS} threads")
+    for ssl_pad, s in stats.items():
+        c = cstats[ssl_pad]
+        log(f"    {ssl_pad:5d} {s['runs']:6d} {s['batches']:5d} "
+            f"{s['wall_ms']:10.2f} {s['device_ms']:10.2f} {s['steps']:7d} "
+            f"{s['overflows']:3d} {c['c1_ms']:9.2f} {c['c8_ms']:9.2f}")
+
+
+def phase_voter(chrom: str, route: str, dev) -> dict:
+    """The device-batched voter against the C voter on the host route's
+    call sets (phase 5's contig whole, a chr21 sample) and on planted
+    large motifs; returns the {"voter": ...} line's object."""
+    from ribbit_tpu_torch import vote_device as vd
+
+    sets = {}
+    for name, seq in (("route", route), ("chr21", chrom)):
+        t = time.perf_counter()
+        sets[name] = capture_votes(name, seq)
+        log(f"  {name} ({len(seq)} bp): {len(sets[name][2])} vote runs of "
+            f"the host route ({sets[name][3]:.2f} G host cycles in the "
+            f"dump), captured in {time.perf_counter() - t:.1f} s")
+
+    # phase 5's contig: every run through both walks (spec up to ssl 1024)
+    code, n_mask, runs, gc = sets["route"]
+    want, c1_s = c_voter(code, n_mask, runs, 1)
+    _, c8_s = c_voter(code, n_mask, runs, VOTE_THREADS)
+    got, banded = card_voter(vd, code, n_mask, runs, "banded", dev)
+    same_winners(got, want, runs, "route set, impl=banded")
+    keep = [i for i, r in enumerate(runs)
+            if vd.bucket_of(r[1], r[2])[0] <= VOTE_SPEC_MAX_SSL]
+    spec_runs = [runs[i] for i in keep]
+    got, spec = card_voter(vd, code, n_mask, spec_runs, "spec", dev)
+    same_winners(got, [want[i] for i in keep], spec_runs,
+                 f"route set up to ssl {VOTE_SPEC_MAX_SSL}, impl=spec")
+    cstats = c_by_bucket(vd, code, n_mask, runs)
+    log_voter_table(banded, cstats, "route set, impl=banded")
+    log_voter_table(spec, cstats, "route set, impl=spec")
+    card_s = sum(s["wall_ms"] for s in banded.values()) / 1e3
+    ovf = sum(s["overflows"] for s in banded.values())
+    log(f"  route set: card (banded) {card_s:.3f} s, {ovf} band "
+        f"overflow(s) re-voted on the host; C voter {c1_s:.3f} s on 1 "
+        f"thread, {c8_s:.3f} s on {VOTE_THREADS}")
+    route_out = {"bp": len(route), "runs": len(runs), "host_gcycles": gc,
+                 "banded": banded, "spec": spec, "c_voter": cstats,
+                 "card_s": card_s, "overflows": ovf, "c1_s": c1_s,
+                 "c8_s": c8_s}
+
+    # chr21: evenly spaced sample of VOTE_SAMPLE_BATCHES batches a bucket
+    code, n_mask, runs, gc = sets["chr21"]
+    want, c8_s = c_voter(code, n_mask, runs, VOTE_THREADS)
+    buckets = by_ssl_bucket(vd, runs)
+    sample = []
+    for ssl_pad, idxs in buckets.items():
+        k = VOTE_SAMPLE_BATCHES * vd.batch_size_of(ssl_pad)
+        sample += (idxs if len(idxs) <= k else
+                   [idxs[i] for i in np.linspace(0, len(idxs) - 1, k)
+                    .astype(int)])
+    s_runs = [runs[i] for i in sample]
+    got, st = card_voter(vd, code, n_mask, s_runs, "banded", dev)
+    same_winners(got, [want[i] for i in sample], s_runs,
+                 "chr21 sample, impl=banded")
+    cstats = c_by_bucket(vd, code, n_mask, s_runs)
+    log_voter_table(st, cstats, "chr21 sample, impl=banded")
+    extrap = {}
+    for ssl_pad, s in st.items():
+        f = len(buckets[ssl_pad]) / s["runs"]
+        extrap[ssl_pad] = {"runs": len(buckets[ssl_pad]),
+                           "card_s": s["wall_ms"] * f / 1e3,
+                           "c1_s": cstats[ssl_pad]["c1_ms"] * f / 1e3}
+    card_s = sum(e["card_s"] for e in extrap.values())
+    c1_s = sum(e["c1_s"] for e in extrap.values())
+    log("  chr21, extrapolated from the sample by run count per bucket: "
+        + ", ".join(f"{p}: card {e['card_s']:.2f} s, C {e['c1_s']:.2f} s"
+                    for p, e in extrap.items()))
+    log(f"  chr21 ({len(runs)} runs): card (banded) {card_s:.1f} s "
+        f"extrapolated, C voter {c1_s:.2f} s on 1 thread extrapolated, "
+        f"{c8_s:.2f} s measured on {VOTE_THREADS} threads over all runs")
+    chr21_out = {"bp": len(chrom), "runs": len(runs), "host_gcycles": gc,
+                 "sampled": len(s_runs), "banded": st, "c_voter": cstats,
+                 "extrapolated": extrap, "card_s_extrapolated": card_s,
+                 "c1_s_extrapolated": c1_s, "c8_s": c8_s}
+
+    planted = []
+    for m, perfect in [(m, False) for m in VOTE_PLANTED_M] + [(300, True)]:
+        code, n_mask, run = planted_vote(m, perfect)
+        want = c_voter(code, n_mask, [run], 1)[0]
+        for impl in vd.IMPLS:
+            got = vd.vote_longer_batch(code, n_mask, [run], impl=impl,
+                                       device=dev)
+            if got != want:
+                raise AssertionError(f"planted m = {m} (perfect {perfect}), "
+                                     f"impl={impl}: {got} vs the C voter's "
+                                     f"{want}")
+        planted.append({"m": m, "run": run, "perfect": perfect,
+                        "winner": want[0]})
+    log(f"  planted runs at m = {VOTE_PLANTED_M} and a perfect m = 300: "
+        "both walks equal the C voter")
+    return {"card": br.card_name(), "route": route_out, "chr21": chr21_out,
+            "planted": planted}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1509,7 +1776,14 @@ def main() -> int:
         "processes)")
     par = phase_parallel(sd, se, chrom, chr21_bed, route, pairs, cfgs[0],
                          dev)
-    del chrom, chr21_bed, pairs
+    del chr21_bed, pairs
+
+    log("[13] the device-batched voter against the C voter on the host "
+        "route's call sets")
+    t = time.perf_counter()
+    voter = phase_voter(chrom, route, dev)
+    log(f"  phase 13 in {time.perf_counter() - t:.1f} s")
+    del chrom
 
     src = "ribbit_tpu_torch/csrc/scan_events.cu"
     replaces = {"anchor_planes": "ribbit_tpu/scan_events_pallas.py:95",
@@ -1552,6 +1826,7 @@ def main() -> int:
         k["parallel_launches"] = par.get(k["name"], 0)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
+    log(json.dumps({"voter": voter}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,6 +119,84 @@ def most_frequent_longer_motif(code: np.ndarray, n_mask: np.ndarray,
     return unit & ((1 << 256) - 1)
 
 
+def _most_frequent_longer_motif_scalar(code: np.ndarray, n_mask: np.ndarray,
+                                       seed_start: int, seed_sequence_length: int,
+                                       motif_length: int, sequence_length: int) -> int:
+    """Direct scalar port of mostFrequentLongerMotif (parse_seed.cpp:153-256);
+    kept as the cross-check oracle for the C voter above and vote_device
+    (a copy of the JAX package's; no route calls it)."""
+    seed_end = seed_start + seed_sequence_length
+    m = motif_length
+
+    def match(row: int, col: int) -> bool:
+        return (not n_mask[col]) and code[row] == code[col]
+
+    mmotif_index = 0
+    max_count = 0
+
+    for row_start in range(seed_start, seed_end - m + 1):
+        row_count = 0
+
+        dstream = row_start + m
+        while dstream < seed_end:
+            max_dindex, max_dcount = -2, 0
+            for x in range(-2, 3):
+                dcount = 0
+                for i in range(m):
+                    if dstream + x + i >= seed_end:
+                        break
+                    if match(row_start + i, dstream + x + i):
+                        dcount += 1
+                if dcount > max_dcount:
+                    max_dcount = dcount
+                    max_dindex = x
+            row_count += max_dcount
+            dstream += max_dindex + m
+
+        ustream = row_start - m
+        while ustream > seed_start:
+            max_dindex, max_dcount = -2, 0
+            for x in range(-2, 3):
+                dcount = 0
+                for i in range(m):
+                    if ustream + x + i < 0:
+                        break
+                    if match(row_start + i, ustream + x + i):
+                        dcount += 1
+                if dcount > max_dcount:
+                    max_dcount = dcount
+                    max_dindex = x
+            row_count += max_dcount
+            ustream += max_dindex - m
+
+        if ustream < seed_start and abs(ustream - seed_start) < m:
+            initial_lastrow = row_start + m - 1
+            pcindex = seed_start + ((m + (ustream - seed_start)) - 1)
+            prefix_rows = m + (ustream - seed_start)
+            max_dindex, max_dcount = -2, 0
+            for x in range(-2, 3):
+                dcount = 0
+                for i in range(prefix_rows):
+                    if pcindex + x - i >= seed_end or pcindex + x - i < seed_start:
+                        break
+                    if match(initial_lastrow - i, pcindex + x - i):
+                        dcount += 1
+                if dcount > max_dcount:
+                    max_dcount = dcount
+                    max_dindex = x
+            row_count += max_dcount
+
+        if row_count > max_count:
+            max_count = row_count
+            mmotif_index = row_start
+
+    motif_unit = 0
+    for j in range(mmotif_index, mmotif_index + m):
+        motif_unit = (motif_unit << 2) | int(code[j])
+    # QUIRK: uint256_t packing truncation for m > 128 (parse_seed.cpp:246-253)
+    return motif_unit & ((1 << 256) - 1)
+
+
 def _n_trimmed_length(n_mask: np.ndarray, seed_start: int, seed_end: int,
                       motif_length: int) -> int:
     """Trim the seed sequence at the first N (parse_seed.cpp:349-354)."""

@@ -38,6 +38,7 @@ import ribbit_tpu_torch.lattice, ribbit_tpu_torch.parallel
 import ribbit_tpu_torch.parallel.distributed
 import ribbit_tpu_torch.parallel.multihost
 import ribbit_tpu_torch.parallel.sharded_refine
+import ribbit_tpu_torch.vote_device
 from ribbit_tpu_torch.cli import main
 from ribbit_tpu_torch.config import RibbitConfig
 
