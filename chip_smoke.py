@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code 1, no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA and nvcc;
   2. build of the CUDA kernels from ribbit_tpu_torch/csrc (one nvcc per
-     source, all at once) and of the C core from csrc/;
+     source, all at once), of the C core from csrc/ and of the batched
+     route's traceback (ribbit_tpu_torch/csrc/traceback.c);
   3. the event kernels against their plain PyTorch versions on the card,
      bit-equal, on one full 8 Mi-bp segment plus halo of a simulated
      chromosome, on edge lengths (the event kernel's tile edges among
@@ -35,7 +36,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
   6. device-batched refinement end to end: RIBBIT_BATCHED_REFINE=1 through
      the port's CLI on that contig, launch counts, BED against the port's
      host route and default gpu route, and the wall time split into
-     forward kernels, host traceback and the rest;
+     forward passes, the C batch traceback (raises above 1 s), request
+     building, _device_align's host packing, cigar processing and
+     emission, and the CLI's work outside refine_batched; then the C
+     traceback against the Python spec (align.banded_sw + _mark_mismatch)
+     on at most 1,000 of phase 5's round-1 pairs, the 10 largest among
+     them, located by the SSW kernels, with its time on 1 thread and on
+     every core;
   7. the dense-mask kernel against its plain version on the card,
      bit-equal on all four planes, and its q7, q6 and pm rows against the
      event words' bits, on phase 3's inputs (the planted perfect runs,
@@ -124,8 +131,10 @@ DENSE_TILE = 256 * 32
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 SSW_REPS = 5
+TRACEBACK_SAMPLE = 1000        # phase 6: round-1 pairs held against the spec
+TRACEBACK_MAX_S = 1.0          # phase 6: the C traceback's whole route
 # the batched route's contig: 1,031,571 bp, about one yeast chromosome
-# (the Python traceback, ~5 ms a pair, rules out chr21 here)
+# (the route's per-item Python work, ~5 s here, would take minutes on chr21)
 ROUTE_LOCI, ROUTE_SEED = 400, 38
 CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
 BAND_EDGE = 8193               # one row past a band of the large kernel
@@ -178,16 +187,19 @@ def phase_build():
     """Every kernel source and the C core, built at once; loads them."""
     from ribbit_tpu_torch import cuda_build
     from ribbit_tpu_torch.core import get_core_lib
+    from ribbit_tpu_torch.native import get_traceback_lib
 
     def timed(fn, *a):
         t = time.perf_counter()
         fn(*a)
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(SOURCES) + 1) as ex:
+    with ThreadPoolExecutor(len(SOURCES) + 2) as ex:
         futs = {f"ribbit_tpu_torch/csrc/{stem}.cu": ex.submit(
             timed, cuda_build.build, stem) for stem in SOURCES}
         futs["the C core (csrc/*.c)"] = ex.submit(timed, get_core_lib)
+        futs["ribbit_tpu_torch/csrc/traceback.c"] = ex.submit(
+            timed, get_traceback_lib)
         for name, f in futs.items():
             log(f"    built {name} in {f.result():.1f} s")
     for stem in SOURCES:
@@ -784,25 +796,81 @@ def phase_ssw(seq: str, cfg, dev, rate):
     return stats, pairs
 
 
-def phase_batched(seq: str, cfg, dev):
+def sample_pairs(pairs, n: int = TRACEBACK_SAMPLE):
+    """At most n of the pairs: the 10 largest (read x ref) and an evenly
+    spaced sample of the rest, in their order."""
+    cells = np.array([r.shape[0] * f.shape[0] for r, f in pairs])
+    largest = set(np.argsort(-cells, kind="stable")[:10].tolist())
+    rest = [i for i in range(len(pairs)) if i not in largest]
+    k = min(len(rest), n - len(largest))
+    pick = np.linspace(0, len(rest) - 1, k).round().astype(int) if k else []
+    keep = sorted(largest | {rest[j] for j in pick})
+    return [pairs[i] for i in keep]
+
+
+def check_traceback(pairs, dev):
+    """The C batch traceback against the Python spec (align.banded_sw +
+    _mark_mismatch) on a sample of phase 5's round-1 pairs, located by the
+    SSW kernels as the route locates them; the C entry's time on 1 thread
+    and on every core, and the spec's."""
+    import ribbit_tpu_torch.refine_batched as rb
+    from ribbit_tpu_torch import align
+
+    sample = sample_pairs(pairs)
+    aligns = rb._device_align(sample, dev)
+    located = [(p, al) for p, al in zip(sample, aligns)
+               if al is not None and al.ref_end >= 0]
+    loc = [np.array([getattr(al, f) for _, al in located]) for f in
+           ("sw_score", "ref_begin", "ref_end", "query_begin", "query_end")]
+    got = [(al.cigar_string, al.mismatches) for _, al in located]
+    times = {}
+    for threads in (1, os.cpu_count() or 1):
+        t = time.perf_counter()
+        cigars, mism = align.traceback_batch([p for p, _ in located], *loc,
+                                             nthreads=threads)
+        times[threads] = time.perf_counter() - t
+        if list(zip(cigars, mism.tolist())) != got:
+            raise AssertionError(f"the C traceback on {threads} threads "
+                                 "differs from the route's")
+    t = time.perf_counter()
+    bad = 0
+    for ((read, ref), al), want in zip(located, got):
+        sub_ref = ref[al.ref_begin:al.ref_end + 1]
+        sub_read = read[al.query_begin:al.query_end + 1]
+        ops = align.banded_sw(sub_ref, sub_read, al.sw_score,
+                              abs(sub_ref.shape[0] - sub_read.shape[0]) + 1)
+        bad += align._mark_mismatch(al, ref, read, read.shape[0],
+                                    ops) != want
+    spec_s = time.perf_counter() - t
+    cells = sum((al.ref_end - al.ref_begin + 1)
+                * (al.query_end - al.query_begin + 1) for _, al in located)
+    log(f"  C traceback against the Python spec on {len(located)} located "
+        f"round-1 pairs (the 10 largest among them, {cells} located cells): "
+        f"{bad} differ; C {times[1] * 1e3:.1f} ms on 1 thread, "
+        + ", ".join(f"{v * 1e3:.1f} ms on {k}" for k, v in times.items()
+                    if k != 1)
+        + f"; the spec {spec_s:.2f} s")
+    if bad:
+        raise AssertionError(f"the C traceback differs from the Python spec "
+                             f"on {bad} pairs")
+
+
+def phase_batched(seq: str, cfg, dev, pairs):
     """RIBBIT_BATCHED_REFINE=1 through the port's CLI against the host and
-    default gpu routes; launches and the wall-time split."""
+    default gpu routes; launches and the wall-time split; the C traceback
+    against the Python spec on a sample of phase 5's round-1 pairs."""
     import ribbit_tpu_torch.refine_batched as rb
     from ribbit_tpu_torch import align_kernels as ak
     from ribbit_tpu_torch.cli import main as cli_main
 
-    spent = {"forward": 0.0, "traceback": 0.0}
+    spent = dict.fromkeys(("forward", "traceback", "requests", "align",
+                           "emit"), 0.0)
     batches = []
 
-    def timed(key, fn, count=False):
+    def counted(fn):
         def wrapped(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                spent[key] += time.perf_counter() - t
-                if count:
-                    batches.append(len(a[0]))
+            batches.append(len(a[0]))
+            return fn(*a, **kw)
         return wrapped
 
     with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
@@ -820,10 +888,13 @@ def phase_batched(seq: str, cfg, dev):
                 beds[route] = fh.read().splitlines()
 
         out = os.path.join(tmp, "batched.bed")
-        saved = (rb._batch_forward_split, rb.banded_sw, rb._mark_mismatch)
-        rb._batch_forward_split = timed("forward", saved[0], count=True)
-        rb.banded_sw = timed("traceback", saved[1])
-        rb._mark_mismatch = timed("traceback", saved[2])
+        names = {"_batch_forward_split": "forward",
+                 "traceback_batch": "traceback", "_requests": "requests",
+                 "_device_align": "align", "_emit": "emit"}
+        saved = {name: getattr(rb, name) for name in names}
+        for name, key in names.items():
+            setattr(rb, name, _timed(spent, key, saved[name]))
+        rb._batch_forward_split = counted(rb._batch_forward_split)
         os.environ["RIBBIT_BATCHED_REFINE"] = "1"
         ak.ssw_forward_small.launches = 0
         ak.ssw_forward_large.launches = 0
@@ -835,7 +906,8 @@ def phase_batched(seq: str, cfg, dev):
             wall = time.perf_counter() - t
         finally:
             del os.environ["RIBBIT_BATCHED_REFINE"]
-            rb._batch_forward_split, rb.banded_sw, rb._mark_mismatch = saved
+            for name, fn in saved.items():
+                setattr(rb, name, fn)
         launches = {"ssw_forward_small": ak.ssw_forward_small.launches,
                     "ssw_forward_large": ak.ssw_forward_large.launches}
         if rc != 0:
@@ -848,10 +920,19 @@ def phase_batched(seq: str, cfg, dev):
         raise AssertionError(f"an SSW kernel was not launched: {launches}")
     same_bed(batched, beds["host"], "the port's host route")
     same_bed(batched, beds["gpu"], "the port's default gpu route")
-    rest = wall - spent["forward"] - spent["traceback"]
+    packing = spent["align"] - spent["forward"] - spent["traceback"]
+    refine = spent["requests"] + spent["align"] + spent["emit"]
     log(f"  batched route {wall:.2f} s: forward passes (pack, kernels, "
-        f"copy back) {spent['forward']:.2f} s, host traceback "
-        f"{spent['traceback']:.2f} s, the rest {rest:.2f} s")
+        f"copy back) {spent['forward']:.2f} s, C traceback "
+        f"{spent['traceback']:.2f} s, request building (possible_motifs, the "
+        f"C voter, _build_ppr, translation) {spent['requests']:.2f} s, "
+        f"_device_align's host packing {packing:.2f} s, cigar processing "
+        f"and emission {spent['emit']:.2f} s; outside refine_batched (the "
+        f"CLI's extraction, C replay, BED write) {wall - refine:.2f} s")
+    if spent["traceback"] > TRACEBACK_MAX_S:
+        raise AssertionError(f"the C traceback took {spent['traceback']:.2f}"
+                             f" s, above {TRACEBACK_MAX_S} s")
+    check_traceback(pairs, dev)
     return launches
 
 
@@ -1745,7 +1826,7 @@ def main() -> int:
 
     log(f"[6] device-batched refinement end to end ({len(route)} bp, "
         "RIBBIT_BATCHED_REFINE=1)")
-    launches.update(phase_batched(route, cfgs[0], dev))
+    launches.update(phase_batched(route, cfgs[0], dev, pairs))
 
     log("[7] dense-mask kernel against its plain version and the event "
         "words on the card (bit-equal)")

@@ -24,11 +24,13 @@ _CSRC = _REPO / "csrc"
 _BUILD = _REPO / "build" / "native"
 
 
-def _compile(srcs) -> pathlib.Path:
+def _compile(srcs, includes=()) -> pathlib.Path:
     """Compile the sources into one cached .so and return its path; raises
-    RuntimeError with every compiler's output if none builds it."""
+    RuntimeError with every compiler's output if none builds it.  The cache
+    key hashes the sources and the files they #include (`includes`)."""
     srcs = list(srcs)
-    h = hashlib.sha256(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:16]
+    h = hashlib.sha256(b"".join(
+        s.read_bytes() for s in srcs + list(includes))).hexdigest()[:16]
     out = _BUILD / f"{srcs[0].stem}_{h}.so"
     if out.exists():
         return out
@@ -49,7 +51,7 @@ def _compile(srcs) -> pathlib.Path:
             return out
         errors.append(f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
     tmp.unlink(missing_ok=True)
-    raise RuntimeError("the C core (csrc/*.c) did not build:\n"
+    raise RuntimeError(f"{', '.join(s.name for s in srcs)} did not build:\n"
                        + "\n".join(errors))
 
 
@@ -100,3 +102,22 @@ def get_vote_lib():
         ctypes.POINTER(ctypes.c_int32),
     ]
     return base
+
+
+@functools.cache
+def get_traceback_lib():
+    """ribbit_tpu_torch/csrc/traceback.c, which #includes the C core's
+    aligner (csrc/ribbit_align.c), as a library of its own with its batch
+    traceback entry bound; raises if it does not build."""
+    so = _compile([_REPO / "ribbit_tpu_torch" / "csrc" / "traceback.c"],
+                  includes=[_CSRC / "ribbit_align.c"])
+    lib = ctypes.CDLL(str(so))
+    P8 = ctypes.POINTER(ctypes.c_int8)
+    P32 = ctypes.POINTER(ctypes.c_int32)
+    P64 = ctypes.POINTER(ctypes.c_int64)
+    lib.ribbit_traceback_batch.restype = ctypes.c_int
+    lib.ribbit_traceback_batch.argtypes = [
+        ctypes.c_int32, P8, P64, P8, P64, P32, P32, P32, P32, P32,
+        ctypes.c_char_p, P64, P32, P32, ctypes.c_int32,
+    ]
+    return lib

@@ -12,14 +12,16 @@ producer/consumer loop _fasta_records_tpu_overlap).  Per contig:
 With RIBBIT_BATCHED_REFINE set (any non-empty value), the refine step is
 refine_batched instead: the SSW forward and reverse passes of every
 alignment run as batches through the CUDA kernels on `device`
-(align_kernels), the traceback on the host; records are then processed
-one at a time rather than through the overlap loop, as
+(align_kernels), the traceback on the host in C; records are then
+processed one at a time rather than through the overlap loop, as
 ribbit_tpu/pipeline.py:448-465 does.  Deviation from the JAX package:
 there a single-contig `--backend tpu` run takes the batched route even
 without the variable (ribbit_tpu/pipeline.py:115).  The port does not,
-because the route's host traceback (align.banded_sw, pure Python, ~4 ms a
-pair) makes it far slower than the C pool: a single-chromosome FASTA
-would go from seconds to hours.
+because the route's per-item Python work keeps it slower than the C
+pool: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 6) a 1,031,571
+bp contig took about 5.2 s on the route, 3.3 s of it building the
+alignment requests and 0.7 s processing cigars, against under 1 s on the
+default route.
 
 With engine="python" (ribbit_tpu/pipeline.py:144-204 with
 scan_backend="tpu"), a contig runs through the Python engine instead:

@@ -4,7 +4,7 @@ three Pallas kernels run in interpret mode (align_pallas_v3, K3;
 align_pallas, K4; align_pallas_v2, K9, which ssw_forward_small serves)
 and the JAX package's numpy spec (align._forward_pass, the forward pass
 of ssw_align) on all four outputs, in forward and terminate mode; with
-the port's traceback copies they give ssw_align's alignments.  Integer DP scores: the
+the port's C batch traceback they give ssw_align's alignments.  Integer DP scores: the
 tolerance is exact equality.
 
 The CUDA kernels themselves run only on a card; chip_smoke.py holds them
@@ -309,9 +309,9 @@ def test_fits_matches_pallas_v3():
 
 
 def test_align_copy_matches_jax_package(small_pairs, oversized_pairs):
-    """The port's traceback copies (align.banded_sw, _mark_mismatch), fed
-    by the plain forward passes as refine_batched._device_align feeds them,
-    give the JAX package's ssw_align alignments."""
+    """refine_batched._device_align (the plain forward passes, then the C
+    batch traceback, align.traceback_batch) gives the JAX package's
+    ssw_align alignments."""
     fields = dataclasses.astuple
     for reads, refs in (small_pairs, oversized_pairs):
         pairs = list(zip(reads, refs))
