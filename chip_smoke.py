@@ -33,16 +33,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
      batch (with the wrapper's host plan and its launches alone), and of
      the launches alone without its largest 1% of pairs and on its
      largest pair;
-  6. device-batched refinement end to end: RIBBIT_BATCHED_REFINE=1 through
-     the port's CLI on that contig, launch counts, BED against the port's
-     host route and default gpu route, and the wall time split into
-     forward passes, the C batch traceback (raises above 1 s), request
-     building, _device_align's host packing, cigar processing and
-     emission, and the CLI's work outside refine_batched; then the C
-     traceback against the Python spec (align.banded_sw + _mark_mismatch)
-     on at most 1,000 of phase 5's round-1 pairs, the 10 largest among
-     them, located by the SSW kernels, with its time on 1 thread and on
-     every core;
+  6. device-batched refinement end to end (refine_batched, the JAX
+     package's single-contig device route: the C round entries, the SSW
+     kernels, the C traceback): the port's CLI on that contig
+     (--backend gpu with RIBBIT_BATCHED_REFINE=1) against the host route;
+     process_sequence (extraction, replay and refinement) without and
+     with the variable, the C pool against the route, in 2 rounds of
+     A B B A; refine_batched and the C pool in C R R C over one replayed
+     session of it, every BED against the host route's; on chr21, refine_batched over phase 4's replayed session
+     against the host route's chr21 lines, beside phase 4's C-pool
+     refinement; each route run's launch counts (counted from 0 just
+     before it), each round's pairs and cells, and each
+     route run's wall time split into request building, H2D, forward
+     passes, the reverse build, terminate passes, the C batch traceback
+     (raises above 1 s on the contig), emission and the final order;
+     then the C traceback against the Python spec (align.banded_sw +
+     _mark_mismatch) on at most 1,000 of phase 5's round-1 pairs, the 10
+     largest among them, located by the SSW kernels, with its time on 1
+     thread and on every core;
   7. the dense-mask kernel against its plain version on the card,
      bit-equal on all four planes, and its q7, q6 and pm rows against the
      event words' bits, on phase 3's inputs (the planted perfect runs,
@@ -69,11 +77,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      launch counts and the wall time split into the device scan, the
      scanners and lattices, and refinement;
  12. the parallel routes (ribbit_tpu_torch.parallel), whose device lists
-     repeat the one card: distributed_process_contig on chr21 over
-     [cuda:0, cuda:0] (BED against phase 4's host-route chr21 lines, K1
-     and K2 launches against the chunk count, the wall time split into
-     extraction, stitching, replay and refinement) and over the default
-     device list on phase 5's contig at 256 Ki-bp chunks; the sharded scan
+     repeat the one card: distributed_process_contig on chr21's first 16
+     Mi-bp at 4 Mi-bp chunks over [cuda:0, cuda:0] (BED against the host
+     route's on that prefix, K1 and K2 launches against the chunk count,
+     the wall time split into extraction, stitching, replay and
+     refinement) and over the default device list on phase 5's contig at
+     256 Ki-bp chunks; the sharded scan
      on four 2 Mi-bp chunks of chr21 with N runs (eq and counts against
      eq_sum8_ref and the window rule, exact K10 launches); the split SSW
      forward on phase 5's round-1 fits() pairs and their terminate pairs,
@@ -90,13 +99,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      both; per-bucket wall times, CUDA-event device spans and walk steps
      against the C voter on one thread and on 8 in the same run.
 Before the kernels line comes {"voter": {...}} (phase 13).  The line
-before the last is {"kernels": [...]} (launches: phases 4, 6, 8, 9 and
-11; parallel_launches: phase 12); the last line is {"ok": true,
+before the last is {"kernels": [...]} (launches: phases 4, 6's CLI
+run, 8, 9 and 11; refine_launches, K3 and K4 only: phase 6's other
+route runs, each counted on its own; parallel_launches: phase 12); the
+last line is {"ok": true,
 "device": {...}}.  Imports nothing of jax or ribbit_tpu.
+
+`python3 chip_smoke.py --route-abba N` runs the build and then phase 6's
+A B B A of process_sequence alone, N rounds (the single-contig route
+choice's measure, at more rounds than the whole script can afford).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -133,8 +149,8 @@ PLAIN_REPS = 3
 SSW_REPS = 5
 TRACEBACK_SAMPLE = 1000        # phase 6: round-1 pairs held against the spec
 TRACEBACK_MAX_S = 1.0          # phase 6: the C traceback's whole route
+ROUTE_ABBA = 2                 # phase 6: A B B A rounds of process_sequence
 # the batched route's contig: 1,031,571 bp, about one yeast chromosome
-# (the route's per-item Python work, ~5 s here, would take minutes on chr21)
 ROUTE_LOCI, ROUTE_SEED = 400, 38
 CLAMP_BP = 17_000              # 2 x 17,000 passes 32,767: diag clamps
 BAND_EDGE = 8193               # one row past a band of the large kernel
@@ -144,10 +160,13 @@ CLOCK_WINDOW_MS = 1500         # the probe's reps while nvidia-smi samples
 # -M past the Pallas eq/sum8 kernel's cap; the event kernel's shifts then
 # reach ten words ahead
 BIG_M = 300
-# phase 12: chunks of the route contig on the default device list and in
-# the two multi-host processes (4 chunks of 1.03 Mb); the sharded scan's
-# chunks of chr21; the split refinement's contig (53,543 bp, 1,170
-# round-1 pairs, 25 of them past fits()); the processes' time limit
+# phase 12: chr21's prefix through distributed_process_contig and its
+# chunks (4, over a device list of 2); chunks of the route contig on the
+# default device list and in the two multi-host processes (4 chunks of
+# 1.03 Mb); the sharded scan's chunks of chr21; the split refinement's
+# contig (53,543 bp, 1,170 round-1 pairs, 25 of them past fits()); the
+# processes' time limit
+PAR_CHR21_BP, PAR_CHUNK = 16 << 20, 4 << 20
 ROUTE_CHUNK = 262_144
 SCAN_CHUNK, SCAN_CHUNKS = 2 << 20, 4
 REFINE_LOCI = 20
@@ -472,6 +491,7 @@ def phase_e2e(se, genome, cfg, dev):
         host_s = time.perf_counter() - t
         same_bed(port_lines, host_lines, "the port's host route")
 
+    kept = None
     for name, seq in genome:
         code, n_mask = encode(seq)
         seg_s = []
@@ -501,7 +521,12 @@ def phase_e2e(se, genome, cfg, dev):
             scan_s = time.perf_counter() - t
             sess.refine(seeds, seq, name)
             refine_s = time.perf_counter() - t - scan_s
-        finally:
+        except BaseException:
+            sess.close()
+            raise
+        if name == "chr21":         # phase 6 runs the batched route on it
+            kept = (sess, seeds, refine_s)
+        else:
             sess.close()
         but = (f" but for {faults} run(s) where the port equals the numpy "
                "spec" if faults else "")
@@ -512,7 +537,7 @@ def phase_e2e(se, genome, cfg, dev):
             f"C replay {scan_s:.2f} s, "
             f"C refinement {refine_s:.2f} s ({len(seeds)} seeds); "
             f"C generation (capture) {cap_s:.2f} s")
-    return launches, port_s, host_s, mb, port_lines, host_lines
+    return launches, port_s, host_s, mb, port_lines, host_lines, kept
 
 
 def same_bed(got, want, what: str):
@@ -584,35 +609,27 @@ def check_events(got, want, code, n_mask, cfg, name: str) -> int:
 
 def round1_pairs(seq: str, cfg):
     """The live (read, ref) pairs of refine_batched's first alignment
-    round on seq: the first batch its _device_align receives."""
+    round on seq, in request order."""
     import ribbit_tpu_torch.refine_batched as rb
     from ribbit_tpu_torch.core import CoreSession
     from ribbit_tpu_torch.encode import encode
 
-    class Captured(Exception):
-        pass
-
-    got = []
-
-    def capture(pairs, device):
-        got.extend(pairs)
-        raise Captured
-
     code, n_mask = encode(seq)
     sess = CoreSession(code, n_mask, cfg, nthreads=os.cpu_count() or 1)
-    real, rb._device_align = rb._device_align, capture
     try:
-        rb.refine_batched(sess.scan(), seq, "route", code, n_mask, sess, cfg)
-    except Captured:
-        pass
+        _, (start, end, mlen, _) = rb.first_items(sess.scan())
+        req = sess.round_requests(rb._translate_codes(seq), start, end,
+                                  mlen, mlen - cfg.min_shift)
     finally:
-        rb._device_align = real
         sess.close()
-    return [(r, f) for r, f in got if r.shape[0] and f.shape[0]]
+    pairs = [(req.reads[req.read_off[k]:req.read_off[k + 1]],
+              req.refs[req.ref_off[k]:req.ref_off[k + 1]])
+             for k in range(req.n)]
+    return [(r, f) for r, f in pairs if r.shape[0] and f.shape[0]]
 
 
 def reverse_pairs(reads, refs, fwd):
-    """Terminate-mode pairs as refine_batched._device_align builds them
+    """Terminate-mode pairs as refine_batched._reverse_pairs builds them
     from a forward result (int32 [4, n] on the host)."""
     keep = [i for i in range(len(reads)) if fwd[1, i] >= 0]
     return ([reads[i][:fwd[2, i] + 1][::-1].copy() for i in keep],
@@ -855,85 +872,251 @@ def check_traceback(pairs, dev):
                              f"on {bad} pairs")
 
 
-def phase_batched(seq: str, cfg, dev, pairs):
-    """RIBBIT_BATCHED_REFINE=1 through the port's CLI against the host and
-    default gpu routes; launches and the wall-time split; the C traceback
-    against the Python spec on a sample of phase 5's round-1 pairs."""
+ROUTE_STEPS = ("requests", "H2D", "forward", "reverse build", "terminate",
+               "traceback", "emit", "order")
+
+
+@contextlib.contextmanager
+def route_split():
+    """The batched route's steps timed while the block runs (each ends in
+    a synchronize): a dict of seconds a step (ROUTE_STEPS) and a list of
+    rounds, each (forward pairs, their cells, terminate pairs, their
+    cells)."""
     import ribbit_tpu_torch.refine_batched as rb
     from ribbit_tpu_torch import align_kernels as ak
-    from ribbit_tpu_torch.cli import main as cli_main
+    from ribbit_tpu_torch.core import CoreSession
 
-    spent = dict.fromkeys(("forward", "traceback", "requests", "align",
-                           "emit"), 0.0)
-    batches = []
+    spent = dict.fromkeys(ROUTE_STEPS, 0.0)
+    rounds = []
+    calls = 0
 
-    def counted(fn):
+    def timed(key, fn):
         def wrapped(*a, **kw):
-            batches.append(len(a[0]))
-            return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                spent[key] += time.perf_counter() - t0
         return wrapped
+
+    def forward(p, devices):
+        nonlocal calls
+        key = ("forward", "terminate")[calls % 2]
+        calls += 1
+        cells = int((p.rlen * p.clen).sum())
+        if key == "forward":
+            rounds.append([p.n, cells])
+        else:
+            rounds[-1] += [p.n, cells]
+        return timed(key, real["_forward"])(p, devices)
+
+    real = {"_forward": rb._forward, "_reverse_pairs": rb._reverse_pairs,
+            "traceback_flat": rb.traceback_flat, "_order": rb._order,
+            "pack_flat": ak.pack_flat,
+            "round_requests": CoreSession.round_requests,
+            "round_emit": CoreSession.round_emit}
+    rb._forward = forward
+    rb._reverse_pairs = timed("reverse build", real["_reverse_pairs"])
+    rb.traceback_flat = timed("traceback", real["traceback_flat"])
+    rb._order = timed("order", real["_order"])
+    ak.pack_flat = timed("H2D", real["pack_flat"])
+    CoreSession.round_requests = timed("requests", real["round_requests"])
+    CoreSession.round_emit = timed("emit", real["round_emit"])
+    try:
+        yield spent, rounds
+    finally:
+        for name in ("_forward", "_reverse_pairs", "traceback_flat",
+                     "_order"):
+            setattr(rb, name, real[name])
+        ak.pack_flat = real["pack_flat"]
+        CoreSession.round_requests = real["round_requests"]
+        CoreSession.round_emit = real["round_emit"]
+
+
+def split_text(spent: dict, wall: float) -> str:
+    return (", ".join(f"{k} {v:.3f} s" for k, v in spent.items())
+            + f", the rest {wall - sum(spent.values()):.3f} s")
+
+
+def ssw_launches() -> dict:
+    from ribbit_tpu_torch import align_kernels as ak
+    return {"ssw_forward_small": ak.ssw_forward_small.launches,
+            "ssw_forward_large": ak.ssw_forward_large.launches}
+
+
+def reset_ssw_launches():
+    from ribbit_tpu_torch import align_kernels as ak
+    ak.ssw_forward_small.launches = 0
+    ak.ssw_forward_large.launches = 0
+
+
+def route_run(what: str, fn):
+    """fn() with the SSW launch counts set to 0 and the route's steps
+    timed; logs the launches, rounds and split.  Returns (fn's result,
+    wall s, launches)."""
+    reset_ssw_launches()
+    with route_split() as (spent, rounds):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    got = ssw_launches()
+    log(f"  {what}: {wall:.3f} s, launches {got}, {len(rounds)} rounds "
+        f"(forward pairs, cells, terminate pairs, cells): {rounds}")
+    log(f"    split: {split_text(spent, wall)}")
+    if min(got.values()) <= 0:
+        raise AssertionError(f"an SSW kernel was not launched: {got}")
+    return out, wall, got, spent
+
+
+def route_abba(seq: str, cfg, dev, rounds: int, want) -> dict:
+    """pipeline.process_sequence (extraction, replay and refinement) on
+    the gpu backend without (A) and with (B) RIBBIT_BATCHED_REFINE=1, the
+    C pool against refine_batched, in `rounds` rounds of A B B A, each BED
+    against `want`; the wall time of each run and of its refinement step
+    (sess.refine or refine_batched, the only code that differs).  Logs
+    each side's median and the pairs the route won; returns the times."""
+    import ribbit_tpu_torch.refine_batched as rb
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.pipeline import process_sequence
+
+    out = {w: {"wall": [], "refine": []} for w in ("C pool", "route")}
+    real = {"pool": CoreSession.refine, "route": rb.refine_batched}
+    spent = []
+
+    def timed(fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t0)
+        return wrapped
+
+    CoreSession.refine = timed(real["pool"])
+    rb.refine_batched = timed(real["route"])
+    try:
+        for k, who in enumerate(("C pool", "route", "route", "C pool")
+                                * rounds):
+            spent.clear()
+            if who == "route":
+                os.environ["RIBBIT_BATCHED_REFINE"] = "1"
+            try:
+                t = time.perf_counter()
+                lines = process_sequence("route", seq, cfg, device=dev)
+                torch.cuda.synchronize()
+                out[who]["wall"].append(time.perf_counter() - t)
+            finally:
+                os.environ.pop("RIBBIT_BATCHED_REFINE", None)
+            out[who]["refine"].append(sum(spent))
+            same_bed(lines, want, f"the host route ({who}, run {k})")
+    finally:
+        CoreSession.refine = real["pool"]
+        rb.refine_batched = real["route"]
+    for key in ("wall", "refine"):
+        c, r = out["C pool"][key], out["route"][key]
+        log(f"  process_sequence on {len(seq)} bp, {rounds} x A B B A, "
+            f"{key}: C pool {c}, median {float(np.median(c)):.4f} s; route "
+            f"{r}, median {float(np.median(r)):.4f} s; the route faster in "
+            f"{sum(b < a for a, b in zip(c, r))} of {2 * rounds} pairs")
+    return out
+
+
+def phase_batched(seq: str, cfg, dev, pairs, chr21):
+    """refine_batched, the JAX package's single-contig device route: the
+    CLI on the route contig with RIBBIT_BATCHED_REFINE=1 against the host
+    route; process_sequence without and with the variable in ROUTE_ABBA
+    rounds of A B B A on that contig (route_abba);
+    refine_batched and the C pool in C R R C over one replayed session of
+    that contig; on chr21 over phase 4's replayed session, against the
+    host route's chr21 lines and beside phase 4's C-pool refinement; each
+    route run's launches (its own, counted from 0), rounds and split; then
+    the C traceback against the Python spec on a sample of phase 5's
+    round-1 pairs.  Returns the K3/K4 launches of the CLI run, and those
+    of the other route runs by run."""
+    import ribbit_tpu_torch.refine_batched as rb
+    from ribbit_tpu_torch.cli import main as cli_main
+    from ribbit_tpu_torch.core import CoreSession
+    from ribbit_tpu_torch.encode import encode
+    from ribbit_tpu_torch.pipeline import extract_events
+
+    launches = {}                # the CLI run's
+    others = {}                  # run -> the other route runs' launches
+
+    def add(run, got):
+        for name, n in got.items():
+            others.setdefault(name, {})[run] = n
 
     with tempfile.TemporaryDirectory(prefix="ribbit_smoke_") as tmp:
         fa = os.path.join(tmp, "route.fa")
         write_fasta(fa, [("route", seq)])
         beds = {}
-        for route, argv in (("host", ["--backend", "host"]),
-                            ("gpu", ["--backend", "gpu"])):
+        for route in ("host", "gpu"):
             out = os.path.join(tmp, f"{route}.bed")
-            t = time.perf_counter()
-            if cli_main(argv + ["--device", str(dev), "-i", fa, "-o", out]):
-                raise AssertionError(f"the {route} route failed")
-            log(f"  --backend {route}: {time.perf_counter() - t:.2f} s")
+            argv = ["--backend", route, "--device", str(dev), "-i", fa,
+                    "-o", out]
+            if route == "host":
+                t = time.perf_counter()
+                rc = cli_main(argv)
+                log(f"  --backend host: {time.perf_counter() - t:.3f} s")
+            else:
+                os.environ["RIBBIT_BATCHED_REFINE"] = "1"
+                try:
+                    rc, _, launches, spent = route_run(
+                        "--backend gpu with RIBBIT_BATCHED_REFINE=1",
+                        lambda: cli_main(argv))
+                finally:
+                    os.environ.pop("RIBBIT_BATCHED_REFINE", None)
+                if spent["traceback"] > TRACEBACK_MAX_S:
+                    raise AssertionError(
+                        f"the C traceback took {spent['traceback']:.2f} s,"
+                        f" above {TRACEBACK_MAX_S} s")
+            if rc != 0:
+                raise AssertionError(f"the {route} route exited {rc}")
             with open(out) as fh:
                 beds[route] = fh.read().splitlines()
+    same_bed(beds["gpu"], beds["host"], "the host route")
 
-        out = os.path.join(tmp, "batched.bed")
-        names = {"_batch_forward_split": "forward",
-                 "traceback_batch": "traceback", "_requests": "requests",
-                 "_device_align": "align", "_emit": "emit"}
-        saved = {name: getattr(rb, name) for name in names}
-        for name, key in names.items():
-            setattr(rb, name, _timed(spent, key, saved[name]))
-        rb._batch_forward_split = counted(rb._batch_forward_split)
-        os.environ["RIBBIT_BATCHED_REFINE"] = "1"
-        ak.ssw_forward_small.launches = 0
-        ak.ssw_forward_large.launches = 0
-        try:
-            t = time.perf_counter()
-            rc = cli_main(["--backend", "gpu", "--device", str(dev),
-                           "-i", fa, "-o", out])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        finally:
-            del os.environ["RIBBIT_BATCHED_REFINE"]
-            for name, fn in saved.items():
-                setattr(rb, name, fn)
-        launches = {"ssw_forward_small": ak.ssw_forward_small.launches,
-                    "ssw_forward_large": ak.ssw_forward_large.launches}
-        if rc != 0:
-            raise AssertionError(f"the batched route exited {rc}")
-        with open(out) as fh:
-            batched = fh.read().splitlines()
-    log(f"  launches in the batched run: {launches}; {len(batches)} forward "
-        f"batches, {sum(batches)} pairs")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"an SSW kernel was not launched: {launches}")
-    same_bed(batched, beds["host"], "the port's host route")
-    same_bed(batched, beds["gpu"], "the port's default gpu route")
-    packing = spent["align"] - spent["forward"] - spent["traceback"]
-    refine = spent["requests"] + spent["align"] + spent["emit"]
-    log(f"  batched route {wall:.2f} s: forward passes (pack, kernels, "
-        f"copy back) {spent['forward']:.2f} s, C traceback "
-        f"{spent['traceback']:.2f} s, request building (possible_motifs, the "
-        f"C voter, _build_ppr, translation) {spent['requests']:.2f} s, "
-        f"_device_align's host packing {packing:.2f} s, cigar processing "
-        f"and emission {spent['emit']:.2f} s; outside refine_batched (the "
-        f"CLI's extraction, C replay, BED write) {wall - refine:.2f} s")
-    if spent["traceback"] > TRACEBACK_MAX_S:
-        raise AssertionError(f"the C traceback took {spent['traceback']:.2f}"
-                             f" s, above {TRACEBACK_MAX_S} s")
+    route_abba(seq, cfg, dev, ROUTE_ABBA, beds["host"])
+
+    code, n_mask = encode(seq)
+    sess = CoreSession(code, n_mask, cfg, nthreads=os.cpu_count() or 1)
+    try:
+        sess.set_events(*extract_events(code, n_mask, cfg, dev))
+        seeds = sess.scan()
+        times = {"C pool": [], "route": []}
+        for k, who in enumerate(("C pool", "route", "route", "C pool")):
+            if who == "route":
+                lines, wall, got, _ = route_run(
+                    f"refinement run {k}, refine_batched",
+                    lambda: rb.refine_batched(seeds, seq, "route", code,
+                                              n_mask, sess, cfg, device=dev))
+                add(f"C R R C run {k}", got)
+            else:
+                t = time.perf_counter()
+                lines = sess.refine(seeds, seq, "route")
+                wall = time.perf_counter() - t
+            times[who].append(wall)
+            same_bed(lines, beds["host"], f"the host route ({who}, run {k})")
+    finally:
+        sess.close()
+    log(f"  refinement of {len(seq)} bp, C R R C: "
+        + "; ".join(f"{k} {v}" for k, v in times.items()))
+
+    sess, seeds, chrom, want, c_refine_s = chr21
+    lines, wall, got, _ = route_run(
+        f"chr21 ({len(chrom)} bp, {len(seeds)} seeds), refine_batched",
+        lambda: rb.refine_batched(seeds, chrom, "chr21", sess.code,
+                                  sess.n_mask, sess, cfg, device=dev))
+    add("chr21", got)
+    log(f"  chr21: refine_batched {wall:.2f} s against phase 4's C-pool "
+        f"refinement {c_refine_s:.2f} s")
+    same_bed(lines, want, "the host route's chr21 lines (phase 4)")
     check_traceback(pairs, dev)
-    return launches
+    return launches, others
 
 
 def word_bits_err(planes, words, cfg) -> int:
@@ -1250,16 +1433,24 @@ def phase_python_engine(sd, se, seq: str, cfg, dev):
     return launches["eq_sum8"]
 
 
-def parallel_chr21(se, chrom: str, want_bed, cfg, devs):
-    """distributed_process_contig on chr21 over `devs`: BED against the
-    host route's chr21 lines, K1/K2 launches against the chunk count, and
-    the wall time split into extraction, stitching, replay and
-    refinement."""
+def parallel_chr21(se, chrom: str, cfg, devs):
+    """distributed_process_contig on chr21's first PAR_CHR21_BP bp at
+    PAR_CHUNK bp chunks over `devs`: BED against the host route's on the
+    same prefix, K1/K2 launches against the chunk count (above the
+    devices'), and the wall time split into extraction, stitching, replay
+    and refinement."""
+    from ribbit_tpu_torch import host
     from ribbit_tpu_torch.core import CoreSession
     from ribbit_tpu_torch.eventstitch import segment_bounds
     from ribbit_tpu_torch.parallel import distributed as dist_mod
 
-    nchunks = len(segment_bounds(len(chrom), 8 << 20)) - 1
+    chrom = chrom[:PAR_CHR21_BP]
+    t = time.perf_counter()
+    want_bed = host.process_sequence("chr21", chrom, cfg)
+    host_s = time.perf_counter() - t
+    nchunks = len(segment_bounds(len(chrom), PAR_CHUNK)) - 1
+    if nchunks <= len(devs):
+        raise AssertionError(f"{nchunks} chunks for {len(devs)} devices")
     spent = dict.fromkeys(("extraction", "stitching", "replay",
                            "refinement"), 0.0)
     saved = (dist_mod._sharded_extract, dist_mod._clip_chunk,
@@ -1275,8 +1466,8 @@ def parallel_chr21(se, chrom: str, want_bed, cfg, devs):
     se.event_words.launches = 0
     try:
         t = time.perf_counter()
-        lines = dist_mod.distributed_process_contig("chr21", chrom, cfg,
-                                                    devices=devs)
+        lines = dist_mod.distributed_process_contig(
+            "chr21", chrom, cfg, chunk_size=PAR_CHUNK, devices=devs)
         wall = time.perf_counter() - t
     finally:
         (dist_mod._sharded_extract, dist_mod._clip_chunk,
@@ -1284,15 +1475,16 @@ def parallel_chr21(se, chrom: str, want_bed, cfg, devs):
          CoreSession.refine) = saved
     launches = {"anchor_planes": se.anchor_planes.launches,
                 "event_words": se.event_words.launches}
-    log(f"  chr21 ({len(chrom)} bp, {nchunks} chunks) over "
+    log(f"  chr21's first {len(chrom)} bp ({nchunks} chunks) over "
         f"{[str(d) for d in devs]}: launches {launches}")
     if set(launches.values()) != {nchunks}:
         raise AssertionError(f"want {nchunks} launches of K1 and K2, got "
                              f"{launches}")
-    same_bed(lines, want_bed, "the host route's chr21 lines (phase 4)")
-    log(f"  distributed chr21 {wall:.2f} s: "
+    same_bed(lines, want_bed, "the host route's lines on the prefix")
+    log(f"  distributed chr21 prefix {wall:.2f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
-        + f", the rest {wall - sum(spent.values()):.2f} s")
+        + f", the rest {wall - sum(spent.values()):.2f} s; the host route "
+        f"on it {host_s:.2f} s ({len(want_bed)} lines)")
     return launches
 
 
@@ -1460,8 +1652,7 @@ def parallel_multihost(fa: str, want_bed, dev):
     log(f"  two processes on {dev}: {wall:.2f} s from launch to exit")
 
 
-def phase_parallel(sd, se, chrom: str, chr21_bed, route: str, pairs, cfg,
-                   dev):
+def phase_parallel(sd, se, chrom: str, route: str, pairs, cfg, dev):
     """The parallel routes on the card (two shards that share one card):
     distributed chr21, the default device list, the sharded scan, the
     split SSW forward and refinement, and two multi-host processes.
@@ -1473,7 +1664,7 @@ def phase_parallel(sd, se, chrom: str, chr21_bed, route: str, pairs, cfg,
     from ribbit_tpu_torch.sim import simulate
 
     devs = make_mesh(devices=[dev, dev])
-    launches = parallel_chr21(se, chrom, chr21_bed, cfg, devs)
+    launches = parallel_chr21(se, chrom, cfg, devs)
 
     mesh = make_mesh()
     route_bed = host.process_sequence("route", route, cfg)
@@ -1760,11 +1951,37 @@ def phase_voter(chrom: str, route: str, dev) -> dict:
             "planted": planted}
 
 
-def main() -> int:
+def route_choice(rounds: int) -> int:
+    """The build, then phase 6's A B B A of process_sequence alone, at
+    `rounds` rounds on the route contig, against the host route's BED."""
+    from ribbit_tpu_torch import host
+    from ribbit_tpu_torch.config import RibbitConfig
+    from ribbit_tpu_torch.sim import simulate
+
+    dev = torch.device("cuda", 0)
+    log(br.card_name())
+    phase_build()
+    cfg = RibbitConfig.create()
+    seq = simulate(num_loci=ROUTE_LOCI, seed=ROUTE_SEED, n_block_rate=0.1,
+                   name="route").sequence
+    out = route_abba(seq, cfg, dev, rounds,
+                     host.process_sequence("route", seq, cfg))
+    log(json.dumps({"route_abba": out, "card": br.card_name()}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if argv:
+        if len(argv) != 2 or argv[0] != "--route-abba":
+            print("usage: chip_smoke.py [--route-abba ROUNDS]",
+                  file=sys.stderr)
+            return 2
+        return route_choice(int(argv[1]))
     import ribbit_tpu_torch.scan_dense as sd
     import ribbit_tpu_torch.scan_events as se
     import ribbit_tpu_torch.scan_masks as sm
@@ -1812,7 +2029,7 @@ def main() -> int:
 
     log("[4] event extraction end to end through the port's CLI, "
         "--backend gpu")
-    launches, port_s, host_s, mb, gpu_bed, host_bed = phase_e2e(
+    launches, port_s, host_s, mb, gpu_bed, host_bed, kept = phase_e2e(
         se, genome, cfgs[0], dev)
     chr21_bed = [line for line in host_bed if line.startswith("chr21\t")]
     del host_bed
@@ -1824,9 +2041,17 @@ def main() -> int:
         "(bit-equal)")
     ssw, pairs = phase_ssw(route, cfgs[0], dev, rate)
 
-    log(f"[6] device-batched refinement end to end ({len(route)} bp, "
-        "RIBBIT_BATCHED_REFINE=1)")
-    launches.update(phase_batched(route, cfgs[0], dev, pairs))
+    log(f"[6] device-batched refinement end to end ({len(route)} bp and "
+        "chr21)")
+    sess, seeds, c_refine_s = kept
+    try:
+        ssw_cli, ssw_others = phase_batched(
+            route, cfgs[0], dev, pairs,
+            (sess, seeds, chrom, chr21_bed, c_refine_s))
+        launches.update(ssw_cli)
+    finally:
+        sess.close()
+    del kept, sess, seeds, chr21_bed
 
     log("[7] dense-mask kernel against its plain version and the event "
         "words on the card (bit-equal)")
@@ -1855,9 +2080,8 @@ def main() -> int:
 
     log("[12] the parallel routes on the card (two shards of one card, two "
         "processes)")
-    par = phase_parallel(sd, se, chrom, chr21_bed, route, pairs, cfgs[0],
-                         dev)
-    del chr21_bed, pairs
+    par = phase_parallel(sd, se, chrom, route, pairs, cfgs[0], dev)
+    del pairs
 
     log("[13] the device-batched voter against the C voter on the host "
         "route's call sets")
@@ -1884,7 +2108,8 @@ def main() -> int:
     kernels += [{"name": k, "route": "cuda",
                  "source": "ribbit_tpu_torch/csrc/ssw_forward.cu",
                  "replaces": replaces[k], "launches": launches[k],
-                 **ssw[k], "library_ms": None}
+                 **ssw[k], "library_ms": None,
+                 "refine_launches": ssw_others[k]}
                 for k in replaces]
     kernels.append({"name": "dense_masks", "route": "cuda", "source": src,
                     "replaces": "ribbit_tpu/scan_pallas_v4.py:70, "

@@ -27,8 +27,8 @@ build); ssw_align is the numpy spec, and it serves the C engine's
 capacity overflow.  Device-batched refinement scores its forward and
 reverse passes with align_kernels (CUDA kernels ssw_forward_small /
 ssw_forward_large) and traces back a round's located pairs at once with
-traceback_batch (ribbit_tpu_torch/csrc/traceback.c, threaded C), whose
-spec is banded_sw + _mark_mismatch.
+traceback_flat (ribbit_tpu_torch/csrc/traceback.c, threaded C; its list
+form is traceback_batch), whose spec is banded_sw + _mark_mismatch.
 """
 
 from __future__ import annotations
@@ -384,50 +384,58 @@ def _mark_mismatch(al: Alignment, ref: np.ndarray, read: np.ndarray,
     return "".join(parts), mismatches
 
 
-def traceback_batch(pairs, score, ref_begin, ref_end, query_begin,
-                    query_end, nthreads=None) -> tuple[list[str], np.ndarray]:
-    """banded_sw + _mark_mismatch over located (read, ref) code pairs, in
-    C (native.get_traceback_lib) on `nthreads` threads (os.cpu_count() by
-    default).  Pair k is located at ref[ref_begin[k]..ref_end[k]] and
-    read[query_begin[k]..query_end[k]] with SW score score[k], as
-    ssw_align locates it.  Returns (cigar strings, int32 mismatches); a
-    traceback error gives "" and 0, as the spec does.  Raises ValueError
-    on a location outside its pair, RuntimeError if the library does not
-    build, or if a pair's ops walk off its end (a score the located pair
-    cannot reach; the spec raises IndexError) or its cigar overflows."""
+def traceback_flat(reads, read_off, read_len, refs, ref_off, ref_len, score,
+                   ref_begin, ref_end, query_begin, query_end,
+                   nthreads=None):
+    """banded_sw + _mark_mismatch over located pairs that lie in flat code
+    buffers, in C (native.get_traceback_lib) on `nthreads` threads
+    (os.cpu_count() by default).  Pair k is the read
+    reads[read_off[k]:read_off[k] + read_len[k]] and the ref likewise,
+    located at ref[ref_begin[k]..ref_end[k]] and
+    read[query_begin[k]..query_end[k]] with SW score score[k], as ssw_align
+    locates it.  Returns (cigar, cigar_off, cigar_len, mismatches): pair
+    k's cigar is the ASCII bytes cigar[cigar_off[k]:cigar_off[k] +
+    cigar_len[k]] of the uint8 buffer; a traceback error gives an empty
+    cigar and 0, as the spec does.  Raises ValueError on a pair outside
+    the buffers or a location outside its pair, RuntimeError if the
+    library does not build, or if a pair's ops walk off its end (a score
+    the located pair cannot reach; the spec raises IndexError) or its
+    cigar overflows."""
     from .native import get_traceback_lib
     lib = get_traceback_lib()
-    n = len(pairs)
-    if n == 0:
-        return [], np.zeros(0, np.int32)
+    reads = np.ascontiguousarray(reads).view(np.int8)
+    refs = np.ascontiguousarray(refs).view(np.int8)
+    span = [np.ascontiguousarray(a, dtype=np.int64)
+            for a in (read_off, read_len, ref_off, ref_len)]
     loc = [np.ascontiguousarray(a, dtype=np.int32) for a in
            (score, ref_begin, ref_end, query_begin, query_end)]
-    if any(a.shape != (n,) for a in loc):
-        raise ValueError(f"{n} pairs need {n} locations each")
-    read_len = np.fromiter((p[0].shape[0] for p in pairs), np.int64, n)
-    ref_len = np.fromiter((p[1].shape[0] for p in pairs), np.int64, n)
+    n = span[0].shape[0]
+    if any(a.shape != (n,) for a in span + loc):
+        raise ValueError(f"{n} pairs need {n} offsets, lengths and "
+                         "locations each")
+    rdo, rdl, rfo, rfl = span
     _, rb, re, qb, qe = loc
-    if ((rb < 0) | (rb > re) | (re >= ref_len)
-            | (qb < 0) | (qb > qe) | (qe >= read_len)).any():
+    if ((rdo < 0) | (rdl < 0) | (rdo + rdl > reads.shape[0])
+            | (rfo < 0) | (rfl < 0) | (rfo + rfl > refs.shape[0])).any():
+        raise ValueError("a pair lies outside the code buffers")
+    if ((rb < 0) | (rb > re) | (re >= rfl)
+            | (qb < 0) | (qb > qe) | (qe >= rdl)).any():
         raise ValueError("a location lies outside its pair")
-    read_off = np.zeros(n + 1, np.int64)
-    np.cumsum(read_len, out=read_off[1:])
-    ref_off = np.zeros(n + 1, np.int64)
-    np.cumsum(ref_len, out=ref_off[1:])
-    reads = np.concatenate([p[0] for p in pairs]).astype(np.int8, copy=False)
-    refs = np.concatenate([p[1] for p in pairs]).astype(np.int8, copy=False)
     cigar_off = np.zeros(n + 1, np.int64)      # ribbit_align's cap a pair
-    np.cumsum(4 * (read_len + ref_len) + 64, out=cigar_off[1:])
+    np.cumsum(4 * (rdl + rfl) + 64, out=cigar_off[1:])
     cigar = np.zeros(int(cigar_off[-1]), np.uint8)
     cigar_len = np.zeros(n, np.int32)
     mismatches = np.zeros(n, np.int32)
+    if n == 0:
+        return cigar, cigar_off[:-1], cigar_len, mismatches
 
     def ptr(a, ct):
         return a.ctypes.data_as(ctypes.POINTER(ct))
 
     rc = lib.ribbit_traceback_batch(
-        n, ptr(reads, ctypes.c_int8), ptr(read_off, ctypes.c_int64),
-        ptr(refs, ctypes.c_int8), ptr(ref_off, ctypes.c_int64),
+        n, ptr(reads, ctypes.c_int8), ptr(rdo, ctypes.c_int64),
+        ptr(rdl, ctypes.c_int64), ptr(refs, ctypes.c_int8),
+        ptr(rfo, ctypes.c_int64), ptr(rfl, ctypes.c_int64),
         *(ptr(a, ctypes.c_int32) for a in loc),
         cigar.ctypes.data_as(ctypes.c_char_p), ptr(cigar_off, ctypes.c_int64),
         ptr(cigar_len, ctypes.c_int32), ptr(mismatches, ctypes.c_int32),
@@ -435,9 +443,27 @@ def traceback_batch(pairs, score, ref_begin, ref_end, query_begin,
     if rc != 0:
         raise RuntimeError("ribbit_traceback_batch: a pair's ops walked "
                            "off it, its cigar overflowed or memory ran out")
+    return cigar, cigar_off[:-1], cigar_len, mismatches
+
+
+def traceback_batch(pairs, score, ref_begin, ref_end, query_begin,
+                    query_end, nthreads=None) -> tuple[list[str], np.ndarray]:
+    """traceback_flat over a list of located (read, ref) code pairs.
+    Returns (cigar strings, int32 mismatches); raises as traceback_flat
+    does."""
+    n = len(pairs)
+    read_len = np.fromiter((p[0].shape[0] for p in pairs), np.int64, n)
+    ref_len = np.fromiter((p[1].shape[0] for p in pairs), np.int64, n)
+    read_off = np.cumsum(read_len) - read_len
+    ref_off = np.cumsum(ref_len) - ref_len
+    flat = [np.concatenate([p[j] for p in pairs]).astype(np.int8, copy=False)
+            if n else np.zeros(0, np.int8) for j in (0, 1)]
+    cigar, cigar_off, cigar_len, mismatches = traceback_flat(
+        flat[0], read_off, read_len, flat[1], ref_off, ref_len, score,
+        ref_begin, ref_end, query_begin, query_end, nthreads)
     raw = cigar.tobytes()
     cigars = [raw[o:o + k].decode("ascii")
-              for o, k in zip(cigar_off[:-1].tolist(), cigar_len.tolist())]
+              for o, k in zip(cigar_off.tolist(), cigar_len.tolist())]
     return cigars, mismatches
 
 

@@ -21,7 +21,7 @@ the lengths, picks each pair's strip bucket and the launch order.
 Pairs travel ragged (Pairs: codes concatenated with int64 offsets), with
 no padding to the batch maximum; the Pallas kernels' padded layouts were a
 Mosaic constraint, not part of the contract.  Splitting a batch by fits()
-is the caller's work (refine_batched._batch_forward_split), as in the JAX
+is the caller's work (refine_batched._forward), as in the JAX
 package.  The kernels live in csrc/ssw_forward.cu, whose header says what
 bounds them on an H100.  Each wrapper runs the plain version
 (ssw_forward_ref) for CPU tensors only; for a CUDA tensor it launches its
@@ -49,11 +49,12 @@ SMALL_LANES = 32         # a warp per pair
 LARGE_LANES = 256        # a block of 8 warps per pair
 
 
-def fits(max_read_len: int, max_ref_len: int) -> bool:
+def fits(max_read_len, max_ref_len):
     """True for pairs of the one-pair-per-lane class (a copy of
-    ribbit_tpu.align_pallas_v3.fits, whose VMEM budget defines it)."""
-    R = RB * max(1, -(-max_read_len // RB))
-    C = 8 * max(1, -(-max_ref_len // 8))
+    ribbit_tpu.align_pallas_v3.fits, whose VMEM budget defines it); on
+    arrays of lengths, their mask."""
+    R = RB * np.maximum(1, -(-np.asarray(max_read_len) // RB))
+    C = 8 * np.maximum(1, -(-np.asarray(max_ref_len) // 8))
     return 3 * R + C <= MAX_ROWS
 
 
@@ -88,15 +89,68 @@ def pack_pairs(reads, refs, terms=None, device="cuda") -> Pairs:
     if len(refs) != n or (terms is not None and len(terms) != n):
         raise ValueError("pack_pairs: reads, refs and terms differ in "
                          "length")
-    require_cuda(device)
-    read, read_off, rlen = _concat(reads, n)
-    ref, ref_off, clen = _concat(refs, n)
+    read, read_off, _ = _concat(reads, n)
+    ref, ref_off, _ = _concat(refs, n)
     term = np.full(n, -1, np.int32)
     if terms is not None:
         term[:] = [-1 if t is None else t for t in terms]
+    return pack_flat(read, read_off, ref, ref_off, term, device)
+
+
+def pack_flat(read, read_off, ref, ref_off, term=None,
+              device="cuda") -> Pairs:
+    """Pairs on `device` from flat 1-byte code buffers (values 0-4) with
+    int64 offsets [n + 1] and optional int32 terminate targets (-1:
+    forward mode; None: all forward)."""
+    require_cuda(device)
+    read_off = np.ascontiguousarray(read_off, np.int64)
+    ref_off = np.ascontiguousarray(ref_off, np.int64)
+    n = read_off.shape[0] - 1
+    term = (np.full(n, -1, np.int32) if term is None
+            else np.ascontiguousarray(term, np.int32))
     to = lambda a: torch.from_numpy(a).to(device)
-    return Pairs(to(read), to(read_off), to(ref), to(ref_off), to(term),
-                 rlen, clen)
+    return Pairs(to(np.ascontiguousarray(read).view(np.uint8)), to(read_off),
+                 to(np.ascontiguousarray(ref).view(np.uint8)), to(ref_off),
+                 to(term), np.diff(read_off), np.diff(ref_off))
+
+
+def _gather(cat, off, idx, lens: np.ndarray, reverse: bool):
+    """The runs cat[off[i]:off[i] + lens[k]] for i = idx[k] (reversed when
+    `reverse`) concatenated on cat's device, and their offsets."""
+    dev = cat.device
+    new_off = np.zeros(lens.shape[0] + 1, np.int64)
+    np.cumsum(lens, out=new_off[1:])
+    total = int(new_off[-1])
+    n = torch.from_numpy(lens).to(dev)
+    o = torch.from_numpy(new_off).to(dev)
+    start = off[idx] + (n - 1 if reverse else 0)
+    pos = torch.arange(total, device=dev) - torch.repeat_interleave(
+        o[:-1], n, output_size=total)
+    src = torch.repeat_interleave(start, n, output_size=total)
+    return cat[src - pos if reverse else src + pos], o
+
+
+def take(p: Pairs, idx, rlen=None, clen=None, term=None,
+         reverse: bool = False) -> Pairs:
+    """Pairs idx of p, gathered on p's device: each read and ref cut to
+    its first rlen[k] and clen[k] codes when those are given (at most its
+    length; checked), reversed when `reverse`, with terminate targets
+    `term` (default p's)."""
+    idx = np.ascontiguousarray(idx, np.int64)
+    rlen = p.rlen[idx] if rlen is None else np.asarray(rlen, np.int64)
+    clen = p.clen[idx] if clen is None else np.asarray(clen, np.int64)
+    if rlen.shape != idx.shape or clen.shape != idx.shape:
+        raise ValueError("take: rlen and clen need one length a pair")
+    if ((rlen < 0) | (rlen > p.rlen[idx]) | (clen < 0)
+            | (clen > p.clen[idx])).any():
+        raise ValueError("take: a cut is longer than its pair")
+    dev = p.read.device
+    it = torch.from_numpy(idx).to(dev)
+    read, read_off = _gather(p.read, p.read_off, it, rlen, reverse)
+    ref, ref_off = _gather(p.ref, p.ref_off, it, clen, reverse)
+    t = (p.term[it] if term is None else
+         torch.from_numpy(np.ascontiguousarray(term, np.int32)).to(dev))
+    return Pairs(read, read_off, ref, ref_off, t, rlen, clen)
 
 
 def _kernel_device(p: Pairs) -> bool:
@@ -331,9 +385,21 @@ def ssw_forward_large(p: Pairs) -> torch.Tensor:
 ssw_forward_large.launches = 0
 
 
+def forward_pairs(kernel, p: Pairs, device) -> np.ndarray:
+    """int32 [4, n] (score, end_ref, end_read, first_hit) on the host of a
+    batch through one kernel wrapper, the pairs moved to `device` first
+    if they lie elsewhere."""
+    device = torch.device(device)
+    if p.read.device != device:
+        require_cuda(device)
+        p = Pairs(*(t.to(device) for t in p[:5]), p.rlen, p.clen)
+    return kernel(p).cpu().numpy()
+
+
 def forward(kernel, reads, refs, terms=None, device="cuda"):
     """(score, end_ref, end_read, first_hit) numpy int arrays [n] of a list
     batch through one kernel wrapper: the contract of
     ribbit_tpu.align_pallas.batch_forward."""
-    out = kernel(pack_pairs(reads, refs, terms, device)).cpu().numpy()
+    out = forward_pairs(kernel, pack_pairs(reads, refs, terms, device),
+                        device)
     return out[0], out[1], out[2], out[3]

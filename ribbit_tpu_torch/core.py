@@ -8,17 +8,22 @@ CUDA event kernels (see scan_events.py).
 
 The port's copy of ribbit_tpu/core.py, which it may not import.  The
 library comes from the port's native._compile, which raises when the C
-core does not build; get_core_lib never returns None.
+core does not build; get_core_lib never returns None.  It builds
+ribbit_tpu_torch/csrc/refine_rounds.c in place of csrc/ribbit_refine.c:
+that file includes the refinement core whole and adds the batched route's
+round entries (round_requests, round_emit), which need the session's
+handle, so they live in this library.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple
 
 import numpy as np
 
 from .config import RibbitConfig
-from .native import _compile, _CSRC
+from .native import _compile, _CSRC, _PORT_CSRC
 
 
 _lib = None
@@ -38,9 +43,10 @@ def _get_core_lib_locked():
     global _lib, _tried
     if _tried:
         return _lib
-    so = _compile([_CSRC / "ribbit_core.c", _CSRC / "ribbit_refine.c",
+    so = _compile([_CSRC / "ribbit_core.c", _PORT_CSRC / "refine_rounds.c",
                    _CSRC / "ribbit_align.c", _CSRC / "ribbit_vote.c",
-                   _CSRC / "ribbit_events.c"])
+                   _CSRC / "ribbit_events.c"],
+                  includes=[_CSRC / "ribbit_refine.c"])
     lib = ctypes.CDLL(str(so))
     P8 = ctypes.POINTER(ctypes.c_int8)
     PU8 = ctypes.POINTER(ctypes.c_uint8)
@@ -89,9 +95,94 @@ def _get_core_lib_locked():
         ctypes.c_int32, ctypes.c_int32, P64, P64]
     lib.ribbit_buffer_free.restype = None
     lib.ribbit_buffer_free.argtypes = [ctypes.POINTER(ctypes.c_char)]
+    P_ROUND = ctypes.POINTER(_CRound)
+    PE = ctypes.POINTER(_CEmit)
+    lib.ribbit_round_requests.restype = P_ROUND
+    lib.ribbit_round_requests.argtypes = [
+        ctypes.c_void_p, P8, PU8, P8, ctypes.c_int64, P64, P64,
+        ctypes.c_int64, ctypes.c_int64, P64, P64, P64, P64, ctypes.c_int32]
+    lib.ribbit_round_free.restype = None
+    lib.ribbit_round_free.argtypes = [P_ROUND]
+    lib.ribbit_round_emit.restype = PE
+    lib.ribbit_round_emit.argtypes = [
+        P_ROUND, P8, PU8, ctypes.c_int64, P64, P64, ctypes.c_int64,
+        ctypes.c_char_p, P64, P64, P64, P64, ctypes.c_char_p, P64, P64,
+        ctypes.c_int32]
+    lib.ribbit_emit_free.restype = None
+    lib.ribbit_emit_free.argtypes = [PE]
     _lib = lib
     _tried = True
     return _lib
+
+
+_P64 = ctypes.POINTER(ctypes.c_int64)
+_P8 = ctypes.POINTER(ctypes.c_int8)
+
+
+class _CRound(ctypes.Structure):
+    """RibbitRound (ribbit_tpu_torch/csrc/refine_rounds.c)."""
+    _fields_ = [("n", ctypes.c_int64)] + [
+        (f, _P64) for f in ("item", "cand", "a_start", "a_len", "atom",
+                            "unit", "read_off", "ref_off")] + [
+        ("reads", _P8), ("refs", _P8)]
+
+
+class _CEmit(ctypes.Structure):
+    """RibbitEmit (ribbit_tpu_torch/csrc/refine_rounds.c)."""
+    _fields_ = [("text", ctypes.POINTER(ctypes.c_char)),
+                ("text_len", ctypes.c_int64), ("nlines", ctypes.c_int64),
+                ("npend", ctypes.c_int64)] + [
+        (f, _P64) for f in ("line_req", "p_start", "p_end", "p_req",
+                            "p_child")]
+
+
+class Requests(NamedTuple):
+    """One round's alignment requests, in item order (RibbitRound).
+    Request k came from pending item item[k]: candidate cand[k] of
+    possible_motifs (motifs up to 10 bp), or -1 for a longer motif's one
+    request.  It aligns reads[read_off[k]:read_off[k+1]] (SSW codes of the
+    genome from a_start[k], a_len[k] long but cut at the contig's end)
+    against refs[ref_off[k]:ref_off[k+1]] (the motif's first atom[k] bases,
+    codes 0-3, tiled to the pseudo-perfect repeat's length); unit[k] is a
+    short motif's unit after the atomicity shift, -1 for a longer one."""
+    item: np.ndarray
+    cand: np.ndarray
+    a_start: np.ndarray
+    a_len: np.ndarray
+    atom: np.ndarray
+    unit: np.ndarray
+    reads: np.ndarray        # int8
+    read_off: np.ndarray     # int64 [n + 1]
+    refs: np.ndarray         # int8
+    ref_off: np.ndarray      # int64 [n + 1]
+
+    @property
+    def n(self) -> int:
+        return self.item.shape[0]
+
+
+class Emitted(NamedTuple):
+    """One round's output (RibbitEmit): BED lines, line j from request
+    line_req[j], and the next round's items, the flank recursion's
+    children: [p_start[j], p_end[j]) of request p_req[j]'s item, child
+    number p_child[j]."""
+    lines: List[str]
+    line_req: np.ndarray
+    p_start: np.ndarray
+    p_end: np.ndarray
+    p_req: np.ndarray
+    p_child: np.ndarray
+
+
+def _arr(ptr, n: int, dtype) -> np.ndarray:
+    """A numpy copy of n values at a C pointer."""
+    if n == 0:
+        return np.zeros(0, dtype)
+    return np.ctypeslib.as_array(ptr, (n,)).astype(dtype, copy=True)
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
 
 
 # the core stores event/emission positions as i32 (an order of magnitude
@@ -241,6 +332,100 @@ class CoreSession:
         text = ctypes.string_at(buf, out_len.value).decode("latin-1")
         self.lib.ribbit_buffer_free(buf)
         return text.splitlines()
+
+    def round_requests(self, translated: np.ndarray, seed_start, seed_end,
+                       mlen, midx, nthreads: int = 0) -> Requests:
+        """The alignment requests of a round's pending items (seed_start,
+        seed_end, motif length, overlay channel; int arrays of one length)
+        on the batched route: the n-trim, the overlay gate (a run of 3,
+        as the C pool asks), the motif (possible_motifs up to 10 bp, else
+        the memoised diagonal vote) and each request's read (from
+        `translated`, the SSW codes of the sequence) and pseudo-perfect
+        ref, in item order, on nthreads threads (0: RIBBIT_THREADS or
+        every core)."""
+        tbl, min_len, perf_units = self._refine_tables()
+        translated = np.ascontiguousarray(translated, dtype=np.int8)
+        if translated.shape[0] != self.code.shape[0]:
+            raise ValueError("translated and the session's code differ in "
+                             "length")
+        cols = [_i64(a) for a in (seed_start, seed_end, mlen, midx)]
+        n = cols[0].shape[0]
+        if any(c.shape != (n,) for c in cols):
+            raise ValueError("the item arrays differ in length")
+        r = self.lib.ribbit_round_requests(
+            self.handle, self.code.ctypes.data_as(_P8),
+            self.n_mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            translated.ctypes.data_as(_P8), self.code.shape[0],
+            min_len.ctypes.data_as(_P64), perf_units.ctypes.data_as(_P64),
+            tbl, n, *(c.ctypes.data_as(_P64) for c in cols), nthreads)
+        try:
+            c = r.contents
+            fields = [_arr(getattr(c, f), c.n, np.int64) for f in
+                      ("item", "cand", "a_start", "a_len", "atom", "unit")]
+            read_off = _arr(c.read_off, c.n + 1, np.int64)
+            ref_off = _arr(c.ref_off, c.n + 1, np.int64)
+            return Requests(*fields, _arr(c.reads, read_off[-1], np.int8),
+                            read_off, _arr(c.refs, ref_off[-1], np.int8),
+                            ref_off)
+        finally:
+            self.lib.ribbit_round_free(r)
+
+    def round_emit(self, req: Requests, sequence_id: str, seed_start,
+                   seed_end, mlen, seed_type, cigar: np.ndarray,
+                   cigar_off, cigar_len, nthreads: int = 0) -> Emitted:
+        """A round's BED lines and next items from its requests (made from
+        these item arrays) and each request's cigar,
+        cigar[cigar_off[k]:cigar_off[k] + cigar_len[k]] (uint8 or bytes;
+        length 0 for none): process_cigar_*, the gates, the BED line and
+        the flank recursion, on nthreads threads."""
+        tbl, min_len, perf_units = self._refine_tables()
+        items = [_i64(a) for a in (seed_start, seed_end, mlen, seed_type)]
+        if any(a.shape != items[0].shape for a in items):
+            raise ValueError("the item arrays differ in length")
+        cig_off, cig_len = _i64(cigar_off), _i64(cigar_len)
+        cigar = np.frombuffer(cigar, np.uint8) if isinstance(
+            cigar, bytes) else np.ascontiguousarray(cigar, np.uint8)
+        n = req.n
+        if cig_off.shape != (n,) or cig_len.shape != (n,):
+            raise ValueError(f"{n} requests need {n} cigar offsets and "
+                             "lengths")
+        if n and ((cig_off < 0) | (cig_len < 0)
+                  | (cig_off + cig_len > cigar.shape[0])).any():
+            raise ValueError("a cigar lies outside the buffer")
+        if n and ((req.item < 0) | (req.item >= items[0].shape[0])).any():
+            raise ValueError("a request's item is not among the items")
+        if (req.read_off[-1] != req.reads.shape[0]
+                or req.ref_off[-1] != req.refs.shape[0]
+                or (n and ((req.atom < 1)
+                           | (req.atom > np.diff(req.ref_off))).any())):
+            raise ValueError("the requests' offsets or motifs do not fit "
+                             "their buffers")
+        keep = [_i64(getattr(req, f)) for f in
+                ("item", "cand", "a_start", "a_len", "atom", "unit",
+                 "read_off", "ref_off")]
+        reads = np.ascontiguousarray(req.reads, np.int8)
+        refs = np.ascontiguousarray(req.refs, np.int8)
+        c = _CRound(n, *(a.ctypes.data_as(_P64) for a in keep),
+                    reads.ctypes.data_as(_P8), refs.ctypes.data_as(_P8))
+        em = self.lib.ribbit_round_emit(
+            ctypes.byref(c), self.code.ctypes.data_as(_P8),
+            self.n_mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            self.code.shape[0], min_len.ctypes.data_as(_P64),
+            perf_units.ctypes.data_as(_P64), tbl,
+            sequence_id.encode("latin-1", errors="replace"),
+            *(a.ctypes.data_as(_P64) for a in items),
+            cigar.ctypes.data_as(ctypes.c_char_p),
+            cig_off.ctypes.data_as(_P64), cig_len.ctypes.data_as(_P64),
+            nthreads)
+        try:
+            e = em.contents
+            text = ctypes.string_at(e.text, e.text_len).decode("latin-1")
+            return Emitted(text.splitlines(),
+                           _arr(e.line_req, e.nlines, np.int64),
+                           *(_arr(getattr(e, f), e.npend, np.int64) for f in
+                             ("p_start", "p_end", "p_req", "p_child")))
+        finally:
+            self.lib.ribbit_emit_free(em)
 
     def overlay_bitcount(self, midx: int, a: int, b: int) -> int:
         return self.lib.ribbit_core_overlay_bitcount(self.handle, midx, a, b)

@@ -24,7 +24,7 @@
 typedef struct {
     int32_t n;
     const int8_t *reads, *refs;
-    const int64_t *read_off, *ref_off, *cigar_off;
+    const int64_t *read_off, *read_len, *ref_off, *ref_len, *cigar_off;
     const int32_t *score, *ref_begin, *ref_end, *query_begin, *query_end;
     char *cigar;
     int32_t *cigar_len, *mismatches;
@@ -46,8 +46,8 @@ typedef struct {
 static int traceback_pair(const batch_t *b, int32_t k, ops_t *ops) {
     const int8_t *read = b->reads + b->read_off[k];
     const int8_t *ref = b->refs + b->ref_off[k];
-    int32_t R = (int32_t)(b->read_off[k + 1] - b->read_off[k]);
-    int32_t C = (int32_t)(b->ref_off[k + 1] - b->ref_off[k]);
+    int32_t R = (int32_t)b->read_len[k];
+    int32_t C = (int32_t)b->ref_len[k];
     char *buf = b->cigar + b->cigar_off[k];
     int32_t cap = (int32_t)(b->cigar_off[k + 1] - b->cigar_off[k]);
     int32_t ref_begin = b->ref_begin[k], query_begin = b->query_begin[k];
@@ -147,7 +147,8 @@ static void *traceback_worker(void *arg) {
     return NULL;
 }
 
-/* Pair k: read reads[read_off[k]:read_off[k+1]], ref likewise, located at
+/* Pair k: read reads[read_off[k]:read_off[k]+read_len[k]], ref likewise
+ * (pairs may lie anywhere in the buffers, in any order), located at
  * ref[ref_begin..ref_end] and read[query_begin..query_end] (inclusive,
  * checked by the caller) with SW score score[k].  Its cigar goes to
  * cigar[cigar_off[k]:cigar_off[k+1]] NUL-terminated, its length to
@@ -156,7 +157,9 @@ static void *traceback_worker(void *arg) {
  * memory could not be had (every pair is still attempted). */
 int ribbit_traceback_batch(int32_t n,
                            const int8_t *reads, const int64_t *read_off,
+                           const int64_t *read_len,
                            const int8_t *refs, const int64_t *ref_off,
+                           const int64_t *ref_len,
                            const int32_t *score, const int32_t *ref_begin,
                            const int32_t *ref_end,
                            const int32_t *query_begin,
@@ -164,7 +167,8 @@ int ribbit_traceback_batch(int32_t n,
                            char *cigar, const int64_t *cigar_off,
                            int32_t *cigar_len, int32_t *mismatches,
                            int32_t nthreads) {
-    batch_t b = {n, reads, refs, read_off, ref_off, cigar_off, score,
+    batch_t b = {n, reads, refs, read_off, read_len, ref_off, ref_len,
+                 cigar_off, score,
                  ref_begin, ref_end, query_begin, query_end, cigar,
                  cigar_len, mismatches, 0, 0};
     if (nthreads > n) nthreads = n;

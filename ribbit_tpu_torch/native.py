@@ -21,6 +21,7 @@ import subprocess
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _REPO / "csrc"
+_PORT_CSRC = _REPO / "ribbit_tpu_torch" / "csrc"
 _BUILD = _REPO / "build" / "native"
 
 
@@ -109,7 +110,7 @@ def get_traceback_lib():
     """ribbit_tpu_torch/csrc/traceback.c, which #includes the C core's
     aligner (csrc/ribbit_align.c), as a library of its own with its batch
     traceback entry bound; raises if it does not build."""
-    so = _compile([_REPO / "ribbit_tpu_torch" / "csrc" / "traceback.c"],
+    so = _compile([_PORT_CSRC / "traceback.c"],
                   includes=[_CSRC / "ribbit_align.c"])
     lib = ctypes.CDLL(str(so))
     P8 = ctypes.POINTER(ctypes.c_int8)
@@ -117,7 +118,7 @@ def get_traceback_lib():
     P64 = ctypes.POINTER(ctypes.c_int64)
     lib.ribbit_traceback_batch.restype = ctypes.c_int
     lib.ribbit_traceback_batch.argtypes = [
-        ctypes.c_int32, P8, P64, P8, P64, P32, P32, P32, P32, P32,
+        ctypes.c_int32, P8, P64, P64, P8, P64, P64, P32, P32, P32, P32, P32,
         ctypes.c_char_p, P64, P32, P32, ctypes.c_int32,
     ]
     return lib

@@ -25,6 +25,21 @@ from .. import align_kernels
 from .sharded_scan import make_mesh, map_blocks
 
 
+def forward_sharded(p: align_kernels.Pairs,
+                    devices: Sequence) -> np.ndarray:
+    """int32 [4, n] (score, end_ref, end_read, first_hit) of a batch of
+    pairs within fits(): K3 on each device's contiguous block of pairs,
+    gathered from p on p's device and moved to the block's."""
+    def block(device, r):
+        return align_kernels.forward_pairs(
+            align_kernels.ssw_forward_small,
+            align_kernels.take(p, np.arange(r.start, r.stop)), device)
+
+    outs = map_blocks(list(devices), p.n, block)
+    return (np.concatenate(outs, axis=1) if outs
+            else np.zeros((4, 0), np.int32))
+
+
 def batch_forward_sharded(reads: list, refs: list,
                           terminates: Optional[list] = None,
                           devices: Optional[Sequence] = None,
@@ -33,17 +48,10 @@ def batch_forward_sharded(reads: list, refs: list,
     (1-byte codes 0-4; terminate targets None or -1 for forward mode),
     K3 on each device's contiguous block of pairs: the contract of
     align_pallas_v3.batch_forward."""
-    def block(device, r):
-        terms = (None if terminates is None
-                 else [terminates[i] for i in r])
-        return align_kernels.forward(
-            align_kernels.ssw_forward_small, [reads[i] for i in r],
-            [refs[i] for i in r], terms, device)
-
-    outs = map_blocks(make_mesh(n_devices, devices), len(reads), block)
-    if not outs:
-        return tuple(np.zeros(0, np.int32) for _ in range(4))
-    return tuple(np.concatenate([o[f] for o in outs]) for f in range(4))
+    mesh = make_mesh(n_devices, devices)
+    out = forward_sharded(
+        align_kernels.pack_pairs(reads, refs, terminates, mesh[0]), mesh)
+    return tuple(out[f] for f in range(4))
 
 
 def refine_batched_sharded(seeds, sequence: str, sequence_id: str,

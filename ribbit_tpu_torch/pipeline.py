@@ -10,18 +10,21 @@ producer/consumer loop _fasta_records_tpu_overlap).  Per contig:
   -> scan -> refine in the C pool -> BED lines
 
 With RIBBIT_BATCHED_REFINE set (any non-empty value), the refine step is
-refine_batched instead: the SSW forward and reverse passes of every
-alignment run as batches through the CUDA kernels on `device`
-(align_kernels), the traceback on the host in C; records are then
-processed one at a time rather than through the overlap loop, as
-ribbit_tpu/pipeline.py:448-465 does.  Deviation from the JAX package:
-there a single-contig `--backend tpu` run takes the batched route even
-without the variable (ribbit_tpu/pipeline.py:115).  The port does not,
-because the route's per-item Python work keeps it slower than the C
-pool: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 6) a 1,031,571
-bp contig took about 5.2 s on the route, 3.3 s of it building the
-alignment requests and 0.7 s processing cigars, against under 1 s on the
-default route.
+refine_batched instead: the C round entries build each round's requests,
+the SSW forward and terminate passes run as batches through the CUDA
+kernels on `device` (align_kernels), the traceback, cigar processing and
+emission run in C on the host; records are then processed one at a time
+rather than through the overlap loop, as ribbit_tpu/pipeline.py:448-465
+does.  Deviation from the JAX package: there a single-contig
+`--backend tpu` run takes the batched route even without the variable
+(ribbit_tpu/pipeline.py:115).  The port does not, because in a fresh
+run the route refines no faster than the C pool: on an H100 80GB HBM3
+at 700.00 W (chip_smoke.py --route-abba 20, 40 runs a side),
+process_sequence on a 1,031,571 bp contig took 1.0399 s by the median
+with the route against 1.0490 s without, and its refinement step
+0.2606 s against 0.2578 s (the route faster in 23 of 40 pairs); on
+chr21 (46.7 Mb, chip_smoke.py phase 6) the route refined in 10.58 s
+against the C pool's 11.48 s.
 
 With engine="python" (ribbit_tpu/pipeline.py:144-204 with
 scan_backend="tpu"), a contig runs through the Python engine instead:

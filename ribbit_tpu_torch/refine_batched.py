@@ -1,16 +1,35 @@
 """Device-batched refinement: seed alignment scoring on the GPU.
 
-The port of ribbit_tpu/refine_batched.py.  Alternative to the C core's
-threaded refinement: the per-seed Smith-Waterman forward/reverse scoring
-passes, the O(len^2) core of refinement, run as BATCHES through the CUDA
-kernels of align_kernels (ssw_forward_small for pairs within fits(),
-ssw_forward_large for the rest).  The O(len*band) banded traceback of a
-round's located pairs is one threaded C call (align.traceback_batch,
-ribbit_tpu_torch/csrc/traceback.c); request building, CIGAR processing
-and emission run in Python on the host.
-Output is exactly the sequential path's: work items carry hierarchical
-order keys (seed index, then recursion path), and process_seed's flank
-recursion becomes rounds of pending items assembled depth-first.
+The port of ribbit_tpu/refine_batched.py, the JAX package's refinement
+of a single-contig device run, which the port takes when
+RIBBIT_BATCHED_REFINE is set (pipeline.py records why not by default).
+It refines the merged seed stream in rounds; a round is:
+
+  CoreSession.round_requests   the pending items' requests in C
+                               (ribbit_tpu_torch/csrc/refine_rounds.c:
+                               n-trim, overlay gate, possible_motifs or the
+                               memoised C voter, the read and pseudo-perfect
+                               ref of each request in flat buffers)
+  align_kernels.pack_flat      one H2D of the round's reads and refs
+  _forward                     the SSW forward passes: ssw_forward_small
+                               (K3) for pairs within fits(), ssw_forward_large
+                               (K4) for the rest
+  _reverse_pairs               the located pairs' reversed prefixes,
+                               gathered on the card
+  _forward                     the terminate passes
+  align.traceback_flat         the banded traceback of the located pairs
+                               in C (ribbit_tpu_torch/csrc/traceback.c)
+  CoreSession.round_emit       cigar processing, the BED lines and the
+                               next round's items (process_seed's flank
+                               recursion) in C
+
+and no step loops over items in Python.  Output is exactly the
+sequential path's: an item's key is its recursion path (seed index, then
+child numbers), a line's key the path and its candidate, and _order sorts
+every round's lines by key once at the end.  _requests and _emit are
+the Python spec that the tests hold the C entries against; no route
+calls them.  _device_align is _align_round over a list of pairs, which
+the tests hold against the JAX package's ssw_align.
 
 The forward passes run on `device` (cuda by default; cpu runs the kernels'
 plain PyTorch version), or on a list of devices: the fits() pairs then
@@ -18,28 +37,25 @@ split over the list (parallel/sharded_refine.py, the counterpart of the
 JAX package's mesh-sharded forward, which it passed in as
 forward_override) and the oversized pairs run on the first device.  Not
 ported: use_device=False (pair-by-pair numpy alignment), which no caller
-of the port uses.  The per-item Python work around the passes sets this
-route's time: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 6, a
-1,031,571 bp contig) the route took about 5.2 s, of which request
-building (_requests) about 3.3 s, cigar processing and emission (_emit)
-0.7 s, _device_align's packing 0.1 s, the forward passes 0.15 s and the
-C traceback 0.07 s, against under 1 s for the C pool.  So the C pool
-stays the pipeline's default and this route runs when
-RIBBIT_BATCHED_REFINE is set.
+of the port uses.  On an H100 80GB HBM3 at 700.00 W (chip_smoke.py phase
+6) the route refined chr21 (46.7 Mb) in 10.58 s against 11.48 s for the
+C pool: request building 7.22 s (most of it the C voter), the traceback
+1.53 s, emission 0.56 s, the SSW passes with their gathers 0.68 s.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from .config import RibbitConfig, CONTINUOUS_ONES_THRESHOLD
 from . import align_kernels, bitutils
-from .align import _TRANSLATE, Alignment, traceback_batch
+from .align import _TRANSLATE, Alignment, traceback_flat
 from .cigarproc import process_cigar_with_pruning, process_cigar_motifwise
 from .native import get_traceback_lib
-from .parallel.sharded_refine import batch_forward_sharded
+from .parallel.sharded_refine import forward_sharded
+from .parallel.sharded_scan import make_mesh
 from .refine import (format_purity, _ppr_length, _build_ppr,
                      _n_trimmed_length, most_frequent_longer_motif,
                      possible_motifs, calculate_motif_units)
@@ -50,88 +66,34 @@ def _translate_codes(s: str) -> np.ndarray:
     return _TRANSLATE[raw & 0x7F]
 
 
-def _batch_forward_split(reads, refs, terms, device):
-    """Dispatch a forward batch across the two kernels: ssw_forward_small
-    (a warp per pair) for pairs within fits(), split over `device` when it
-    is a list, and ssw_forward_large (a block per pair) for oversized
-    pairs, on the list's first device, as the JAX package splits them
-    between its two Pallas kernels.  Returns per-pair (score, end_ref,
-    end_read, first_hit) in the input order."""
-    devices = (list(device) if isinstance(device, (list, tuple))
-               else [device])
-    n = len(reads)
-    small = [i for i in range(n)
-             if align_kernels.fits(reads[i].shape[0], refs[i].shape[0])]
-    score = np.empty(n, np.int64)
-    end_ref = np.empty(n, np.int64)
-    end_read = np.empty(n, np.int64)
-    first_hit = np.empty(n, np.int64)
-
-    def run(idx, forward):
-        if not idx:
-            return
-        t = None if terms is None else [terms[i] for i in idx]
-        s, er, erd, fh = forward([reads[i] for i in idx],
-                                 [refs[i] for i in idx], t)
-        score[idx] = s
-        end_ref[idx] = er
-        end_read[idx] = erd
-        first_hit[idx] = fh
-
-    run(small, lambda r, f, t: batch_forward_sharded(r, f, t, devices))
-    if len(small) != n:
-        small_set = set(small)
-        run([i for i in range(n) if i not in small_set],
-            lambda r, f, t: align_kernels.forward(
-                align_kernels.ssw_forward_large, r, f, t, devices[0]))
-    return score, end_ref, end_read, first_hit
-
-
 def _device_align(pairs: List[Tuple[np.ndarray, np.ndarray]],
                   device) -> List[Optional[Alignment]]:
-    """Exact Align() for a batch of (read, ref) code pairs: device forward +
-    device reverse (terminate mode) locate each alignment, then one C call
-    traces back every located pair (traceback_batch: banded_sw and the
-    '='/'X' split, threaded).  Equivalent to ribbit_tpu/align.py ssw_align
-    pair-by-pair."""
+    """Exact Align() for a list of (read, ref) code pairs: the pairs in
+    flat buffers through _align_round, the route's alignment of a round.
+    Equivalent to ribbit_tpu/align.py ssw_align pair by pair: None for an
+    empty read or ref, an empty cigar where nothing was located."""
+    reads, read_off, _ = align_kernels._concat([rd for rd, _ in pairs],
+                                               len(pairs))
+    refs, ref_off, _ = align_kernels._concat([rf for _, rf in pairs],
+                                             len(pairs))
+    devices = make_mesh(devices=device if isinstance(device, (list, tuple))
+                        else [device])
+    al = _align_round(reads.view(np.int8), read_off, refs.view(np.int8),
+                      ref_off, devices, None)
     out: List[Optional[Alignment]] = [None] * len(pairs)
-    live = [i for i, (rd, rf) in enumerate(pairs)
-            if rd.shape[0] and rf.shape[0]]
-    if not live:
-        return out
-    reads = [pairs[i][0] for i in live]
-    refs = [pairs[i][1] for i in live]
-    score, end_ref, end_read, _ = _batch_forward_split(
-        reads, refs, None, device)
-
-    located = []                             # (k into live, i into pairs)
-    rev_reads, rev_refs = [], []
-    for k, i in enumerate(live):
-        if end_ref[k] < 0:
-            al = Alignment()
-            al.sw_score = 0
-            al.ref_end = -1
-            al.query_end = pairs[i][0].shape[0] - 1
-            out[i] = al                      # empty cigar -> caller skips
-            continue
-        located.append((k, i))
-        rev_reads.append(pairs[i][0][:int(end_read[k]) + 1][::-1].copy())
-        rev_refs.append(pairs[i][1][:int(end_ref[k]) + 1][::-1].copy())
-    if not located:
-        return out
-    ks = np.array([k for k, _ in located])
-    idx = [i for _, i in located]
-    _s2, _er2, erd2, hit2 = _batch_forward_split(
-        rev_reads, rev_refs, score[ks].tolist(), device)
-    sw, ref_end, query_end = score[ks], end_ref[ks], end_read[ks]
-    ref_begin, query_begin = ref_end - hit2, query_end - erd2
-    cigars, mismatches = traceback_batch(
-        [pairs[i] for i in idx], sw, ref_begin, ref_end, query_begin,
-        query_end)
-    for j, i in enumerate(idx):
-        out[i] = Alignment(int(sw[j]), int(ref_begin[j]), int(ref_end[j]),
-                           int(query_begin[j]), int(query_end[j]),
-                           cigars[j], int(mismatches[j]))
+    for i, (rd, rf) in enumerate(pairs):
+        if rd.shape[0] and rf.shape[0]:
+            out[i] = Alignment()             # empty cigar -> caller skips
+            out[i].sw_score = 0
+            out[i].ref_end = -1
+            out[i].query_end = rd.shape[0] - 1
+    raw = al.cigar.tobytes()
+    for j, i in enumerate(al.located.tolist()):
+        o, k = int(al.cigar_off[j]), int(al.cigar_len[j])
+        out[i] = Alignment(int(al.score[j]), int(al.ref_begin[j]),
+                           int(al.ref_end[j]), int(al.query_begin[j]),
+                           int(al.query_end[j]), raw[o:o + k].decode("ascii"),
+                           int(al.mismatches[j]))
     return out
 
 
@@ -258,34 +220,136 @@ def _emit(requests: List[tuple], aligns: List[Optional[Alignment]],
     return pending
 
 
+def _forward(p: align_kernels.Pairs, devices) -> np.ndarray:
+    """int64 [4, n] (score, end_ref, end_read, first_hit) of a batch on
+    devices[0] (with terminate targets in p.term): the pairs within fits()
+    through K3 (ssw_forward_small), split over the devices, the rest
+    through K4 (ssw_forward_large) on the first, as the JAX package splits
+    a batch between its two Pallas kernels."""
+    small = align_kernels.fits(p.rlen, p.clen)
+    out = np.empty((4, p.n), np.int64)
+    idx = np.flatnonzero(small)
+    if idx.size:
+        out[:, idx] = forward_sharded(align_kernels.take(p, idx), devices)
+    idx = np.flatnonzero(~small)
+    if idx.size:
+        out[:, idx] = align_kernels.forward_pairs(
+            align_kernels.ssw_forward_large, align_kernels.take(p, idx),
+            devices[0])
+    return out
+
+
+def _reverse_pairs(p: align_kernels.Pairs, located: np.ndarray,
+                   fwd: np.ndarray) -> align_kernels.Pairs:
+    """The terminate-mode pairs of the located pairs of p, gathered on p's
+    device: each read and ref cut after its forward end and reversed (the
+    [:end + 1][::-1] prefixes of ssw_align), the forward score its
+    terminate target."""
+    return align_kernels.take(p, located, fwd[2] + 1, fwd[1] + 1, fwd[0],
+                              reverse=True)
+
+
+class Aligned(NamedTuple):
+    """The located alignments of a batch of pairs: pair located[k] has SW
+    score score[k] over ref[ref_begin[k]..ref_end[k]] and
+    read[query_begin[k]..query_end[k]], the cigar
+    cigar[cigar_off[k]:cigar_off[k] + cigar_len[k]] (ASCII bytes) and
+    mismatches[k] mismatches."""
+    located: np.ndarray
+    score: np.ndarray
+    ref_begin: np.ndarray
+    ref_end: np.ndarray
+    query_begin: np.ndarray
+    query_end: np.ndarray
+    cigar: np.ndarray
+    cigar_off: np.ndarray
+    cigar_len: np.ndarray
+    mismatches: np.ndarray
+
+
+def _align_round(reads, read_off, refs, ref_off, devices,
+                 nthreads) -> Aligned:
+    """ssw_align over the pairs of flat int8 code buffers (pair k is
+    reads[read_off[k]:read_off[k + 1]] against refs[ref_off[k]:...], int64
+    offsets [n + 1]): one H2D of the buffers, the forward passes, the
+    reverse pairs, the terminate passes, and one C traceback of the
+    located pairs on nthreads threads (None: every core)."""
+    p = align_kernels.pack_flat(reads, read_off, refs, ref_off,
+                                device=devices[0])
+    live = np.flatnonzero((p.rlen > 0) & (p.clen > 0))
+    fwd = _forward(align_kernels.take(p, live), devices)
+    hit = fwd[1] >= 0
+    located, fwd = live[hit], fwd[:, hit]
+    rev = _forward(_reverse_pairs(p, located, fwd), devices)
+    score, end_ref, end_read = fwd[0], fwd[1], fwd[2]
+    ref_begin, query_begin = end_ref - rev[3], end_read - rev[2]
+    tb = traceback_flat(reads, read_off[located], p.rlen[located], refs,
+                        ref_off[located], p.clen[located], score, ref_begin,
+                        end_ref, query_begin, end_read, nthreads)
+    return Aligned(located, score, ref_begin, end_ref, query_begin,
+                   end_read, *tb)
+
+
+def first_items(seeds: np.ndarray):
+    """The first round's pending items of a seed stream (int64 [N, 4]:
+    start, end, motif length, rank): the seeds of rank other than -1 that
+    span 0.9 of their motif.  Returns (their seed indices, (start, end,
+    motif length, seed type))."""
+    s, e, m, rank = np.asarray(seeds, np.int64).reshape(-1, 4).T
+    first = np.flatnonzero((rank != -1) & ((e - s) >= 0.9 * m))
+    return first, (s[first], e[first], m[first], rank[first])
+
+
+def _order(keys: List[np.ndarray]) -> np.ndarray:
+    """The sequential path's order of every round's lines from their key
+    rows (the item's path, then the candidate or -1): lexicographic, a
+    shorter row padded with -1, so that a large-motif item's line comes
+    before its children's and their subtrees keep the recursion's
+    depth-first order."""
+    width = max(k.shape[1] for k in keys)
+    rows = np.vstack([np.pad(k, ((0, 0), (0, width - k.shape[1])),
+                             constant_values=-1) for k in keys])
+    return np.lexsort(rows.T[::-1])
+
+
 def refine_batched(seeds: np.ndarray, sequence: str, sequence_id: str,
                    code: np.ndarray, n_mask: np.ndarray, sess,
                    cfg: RibbitConfig, device="cuda") -> List[str]:
     """Refine the merged seed stream with batched alignment rounds.
 
-    sess: CoreSession (overlay longest-run queries).  The forward passes
-    run on `device`, or split over a list of devices (_batch_forward_split).  Returns BED lines in the sequential path's exact
-    order (hierarchical order keys).  Raises, before any pass, if the C
-    traceback library does not build: there is no fallback."""
+    sess: the contig's CoreSession, whose round entries build each round's
+    requests and emit its lines on the session's threads.  The forward
+    passes run on `device`, or split over a list of devices (_forward).
+    Returns BED lines in the sequential path's exact order.  Raises,
+    before any pass, if the C traceback library does not build: there is
+    no fallback."""
     get_traceback_lib()
+    devices = make_mesh(devices=device if isinstance(device, (list, tuple))
+                        else [device])
     translated = _translate_codes(sequence)
-    results: List[Tuple[tuple, str]] = []    # (order_key, line)
-
-    # pending large-motif work items: (key, seed_start, seed_end, mlen,
-    # seed_type, midx); motifwise items carry their candidate list
-    pending: List[tuple] = []
-    for idx, (s, e, mlen, rank) in enumerate(seeds.tolist()):
-        if rank == -1:
-            continue
-        if e - s >= 0.9 * mlen:
-            pending.append(((idx,), s, e, mlen, rank,
-                            cfg.motif_channel(mlen)))
-
-    while pending:
-        requests, pairs = _requests(pending, translated, code, n_mask, sess,
-                                    cfg)
-        pending = _emit(requests, _device_align(pairs, device), sequence_id,
-                        code, cfg, results)
-
-    results.sort(key=lambda kv: kv[0])
-    return [line for _k, line in results]
+    nthreads = sess.nthreads
+    first, items = first_items(seeds)
+    path = first[:, None]            # an item's key: its recursion path
+    lines: List[str] = []
+    keys: List[np.ndarray] = []
+    while items[0].size:
+        start, end, mlen, seed_type = items
+        req = sess.round_requests(translated, start, end, mlen,
+                                  mlen - cfg.min_shift, nthreads=nthreads)
+        al = _align_round(req.reads, req.read_off, req.refs, req.ref_off,
+                          devices, nthreads)
+        cigar_off = np.zeros(req.n, np.int64)
+        cigar_len = np.zeros(req.n, np.int64)
+        cigar_off[al.located] = al.cigar_off
+        cigar_len[al.located] = al.cigar_len
+        em = sess.round_emit(req, sequence_id, start, end, mlen, seed_type,
+                             al.cigar, cigar_off, cigar_len, nthreads)
+        lines += em.lines
+        src = req.item[em.line_req]
+        keys.append(np.column_stack([path[src], req.cand[em.line_req]]))
+        parent = req.item[em.p_req]
+        path = np.column_stack([path[parent], em.p_child])
+        items = (em.p_start, em.p_end, mlen[parent], seed_type[parent])
+    if not lines:
+        return []
+    return [lines[i] for i in _order(keys)]

@@ -71,7 +71,7 @@ def _spec(reads, refs, terms=None, forward_pass=jax_align._forward_pass):
 
 
 def _reverse(reads, refs, fwd):
-    """Reverse-pass inputs as refine_batched._device_align builds them."""
+    """Reverse-pass inputs as refine_batched._reverse_pairs builds them."""
     score, end_ref, end_read, _ = fwd
     keep = [i for i in range(len(reads)) if end_ref[i] >= 0]
     rr = [reads[i][:int(end_read[i]) + 1][::-1].copy() for i in keep]

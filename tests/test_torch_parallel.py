@@ -350,11 +350,11 @@ def test_split_refinement_matches_oracle(golden_dir, monkeypatch):
     byte for byte, with its forward batches of fits() pairs split in eight
     blocks and its oversized pairs in one batch."""
     calls = []
-    real = ak.forward
-    monkeypatch.setattr(ak, "forward",
-                        lambda kernel, reads, refs, terms, device:
-                        calls.append((kernel.__name__, len(reads)))
-                        or real(kernel, reads, refs, terms, device))
+    real = ak.forward_pairs
+    monkeypatch.setattr(ak, "forward_pairs",
+                        lambda kernel, p, device:
+                        calls.append((kernel.__name__, p.n))
+                        or real(kernel, p, device))
     cfg = RibbitConfig.create()
     lines = []
     for sid, seq in read_fasta(str(golden_dir / "g3.fa")):
