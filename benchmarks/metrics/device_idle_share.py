@@ -1,0 +1,10 @@
+"""The share of the traced window in which no kernel, copy or memset ran
+on the card (torch.profiler)."""
+
+TARGETS = ()
+
+
+def read(run):
+    if run.trace is None or not run.trace.device or run.trace.window_s <= 0:
+        return None
+    return 1.0 - run.trace.busy_s() / run.trace.window_s
