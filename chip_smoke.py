@@ -377,7 +377,7 @@ def phase_kernels(se, cases, cfgs, dev, rate):
     shape."""
     from ribbit_tpu_torch.encode import encode
 
-    err = {"anchor_planes": 0, "event_words": 0}
+    err = {"anchor_planes": 0, "event_words": 0, "overlay": 0}
     times, k1_ms = {}, {}
     for cfg in cfgs:
         tag = f"m{cfg.min_motif}-M{cfg.max_motif}"
@@ -388,17 +388,23 @@ def phase_kernels(se, cases, cfgs, dev, rate):
             a_k = se.anchor_planes(c, cfg)
             a_p = se.anchor_planes_ref(c, cfg)
             e_a = max_abs_err(a_k, a_p)
-            w_k = se.event_words(c, n, a_k, cfg)
+            # the event pass as the pipeline runs it: with the packed
+            # overlay (poisoned first, so a word left unwritten shows)
+            ov_k = torch.full((cfg.nmotifs, se.overlay_row_words(len(seq))),
+                              -1, dtype=torch.int32, device=dev)
+            w_k = se.event_words(c, n, a_k, cfg, overlay=ov_k)
             w_p = se.flagwords_ref(c, n, a_p, cfg)
             e_w = max_abs_err(w_k, w_p)
+            e_o = int((ov_k != se.overlay_words_ref(c, a_p, cfg)).sum())
             torch.cuda.synchronize()
             log(f"  {tag} {name} L={len(seq)}: anchor_planes err {e_a}, "
-                f"event_words err {e_w}")
+                f"event_words err {e_w}, overlay words differing {e_o}")
             err["anchor_planes"] = max(err["anchor_planes"], e_a)
             err["event_words"] = max(err["event_words"], e_w)
-            if e_a or e_w:
+            err["overlay"] = max(err["overlay"], e_o)
+            if e_a or e_w or e_o:
                 raise AssertionError(f"kernel != plain version ({tag} "
-                                     f"{name}: {e_a}, {e_w})")
+                                     f"{name}: {e_a}, {e_w}, {e_o})")
             if name == "segment":
                 # the anchor kernel's halo grows with the largest shift
                 k1_ms[tag] = cuda_ms(lambda: se.anchor_planes(c, cfg),
@@ -410,7 +416,8 @@ def phase_kernels(se, cases, cfgs, dev, rate):
                     cuda_ms(lambda: se.anchor_planes_ref(c, cfg),
                             PLAIN_REPS))
                 times["event_words"] = (
-                    cuda_ms(lambda: se.event_words(c, n, a_k, cfg),
+                    cuda_ms(lambda: se.event_words(c, n, a_k, cfg,
+                                                   overlay=ov_k),
                             KERNEL_REPS),
                     cuda_ms(lambda: se.flagwords_ref(c, n, a_k, cfg),
                             PLAIN_REPS))
@@ -431,7 +438,7 @@ def phase_kernels(se, cases, cfgs, dev, rate):
                     f" MB, D2H {d2h * 1e3:.1f} ms "
                     f"({w_host.nbytes / d2h / 1e9:.2f} GB/s), C decode "
                     f"{dec * 1e3:.1f} ms")
-            del a_k, a_p, w_k, w_p
+            del a_k, a_p, w_k, w_p, ov_k
     for k, (ms, pms, bms, by, nbytes) in times.items():
         log(f"  {k} at the segment shape: kernel {ms:.4f} ms, plain "
             f"{pms:.3f} ms ({pms / ms:.1f}x), bound {bms:.4f} ms by {by} "
@@ -1153,7 +1160,9 @@ def phase_dense_kernel(se, sm, cases, cfgs, dev, rate):
             e = max(max_abs_err(g[i:i + 32], w[i:i + 32])
                     for g, w in zip(got, want) for i in range(0, len(g), 32))
             del want
-            e_bits = word_bits_err(got, se.event_words(c, n, a, cfg), cfg)
+            ov = torch.empty(cfg.nmotifs, se.overlay_row_words(len(seq)),
+                             dtype=torch.int32, device=dev)
+            e_bits = word_bits_err(got, se.event_words(c, n, a, cfg, ov), cfg)
             torch.cuda.synchronize()
             log(f"  {tag} {name} L={len(seq)}: dense_masks err {e}, "
                 f"{e_bits} positions off the event words' bits; "

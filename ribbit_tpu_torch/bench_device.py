@@ -91,11 +91,15 @@ def bench_scan(L: int = 8 << 20, device="cuda") -> dict:
 
 
 def bench_events(L: int = 8 << 20, device="cuda") -> dict:
-    """Event extraction (K1 + K2) over every motif channel, Mbp/s."""
+    """Event extraction (K1 + K2, the packed overlay stored as the
+    pipeline stores it) over every motif channel, Mbp/s."""
     dev = _device(device)
     code, n_mask = _genome(L, dev)
+    ov = torch.empty(CFG.nmotifs, se.overlay_row_words(L), dtype=torch.int32,
+                     device=dev)
     ms = _timed(lambda: se.event_words(code, n_mask,
-                                       se.anchor_planes(code, CFG), CFG),
+                                       se.anchor_planes(code, CFG), CFG,
+                                       overlay=ov),
                 lambda w: w.sum(), REPS, dev)
     return {"gpu_event_mbps": _mbps(L, ms)}
 

@@ -43,7 +43,7 @@ import torch
 
 from .backend import count_launch, require_cuda
 from .config import RibbitConfig
-from .scan_events import OUT_ROWS, nsp_of
+from .scan_events import OUT_ROWS, nsp_of, overlay_row_words
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 # lane instructions an SM can issue a clock: four partitions, each with a
@@ -141,8 +141,10 @@ def scan_work(kernel: str, L: int, cfg: RibbitConfig):
     anchor_planes reads the code and writes one int32 word per 32
     positions and shift row; event_words and dense_masks read code, n_mask
     and those words and write 4 B per 8 plane rows, or 4 B (four int8
-    planes) per motif row; eq_sum8 reads the code and writes two bytes
-    (eq and sum8) per position and shift row."""
+    planes) per motif row; event_words also writes the packed overlay,
+    a bit per position and motif row (overlay_row_words); eq_sum8 reads
+    the code and writes two bytes (eq and sum8) per position and shift
+    row."""
     anchors = cfg.nshifts * ((L + 31) // 32) * 4
     if kernel == "anchor_planes":
         return L + anchors, SCAN_OPS[kernel] * cfg.nshifts * L
@@ -150,6 +152,8 @@ def scan_work(kernel: str, L: int, cfg: RibbitConfig):
         return L + 2 * cfg.nshifts * L, SCAN_OPS[kernel] * cfg.nshifts * L
     rows = {"event_words": nsp_of(cfg), "dense_masks": cfg.nmotifs}[kernel]
     out = 4 * L * (rows // OUT_ROWS if kernel == "event_words" else rows)
+    if kernel == "event_words":
+        out += 4 * cfg.nmotifs * overlay_row_words(L)
     return 2 * L + anchors + out, SCAN_OPS[kernel] * rows * L
 
 

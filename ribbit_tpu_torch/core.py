@@ -4,7 +4,9 @@ A CoreSession owns a RibbitCore handle for one sequence: it runs the three
 scan phases + merge lattices in C and then serves the overlay range queries
 (popcount / longest-run) that seed refinement needs.  Events are either
 generated natively from the 2-bit code (host path) or injected from the
-CUDA event kernels (see scan_events.py).
+CUDA event kernels (see scan_events.py), with the event pass's packed
+overlay as the overlay cache that host generation would have built
+(set_overlay).
 
 The port's copy of ribbit_tpu/core.py, which it may not import.  The
 library comes from the port's native._compile, which raises when the C
@@ -73,6 +75,13 @@ def _get_core_lib_locked():
     lib.ribbit_core_overlay_longest_run.restype = ctypes.c_int64
     lib.ribbit_core_overlay_longest_run.argtypes = [
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64]
+    lib.ribbit_core_overlay_alloc.restype = ctypes.c_int64
+    lib.ribbit_core_overlay_alloc.argtypes = [ctypes.c_void_p, ctypes.c_int32,
+                                              ctypes.c_int64]
+    lib.ribbit_core_overlay_row.restype = ctypes.POINTER(ctypes.c_int32)
+    lib.ribbit_core_overlay_cache_max.restype = ctypes.c_int64
+    lib.ribbit_core_overlay_cache_max.argtypes = []
+    lib.ribbit_core_overlay_row.argtypes = [ctypes.c_void_p, ctypes.c_int32]
     lib.ribbit_core_drop_overlay.restype = None
     lib.ribbit_core_drop_overlay.argtypes = [ctypes.c_void_p]
     lib.ribbit_core_destroy.restype = None
@@ -198,6 +207,13 @@ def _i64(a) -> np.ndarray:
 # process_sequence_chunked) instead of reaching a CoreSession
 MAX_CONTIG = 2**31 - 64
 
+def overlay_cache_max() -> int:
+    """The longest contig (bp) that gets a packed overlay cache, by host
+    generation's rule (RIBBIT_OVERLAY_CACHE_MAX, default 256 Mi bp), as the
+    C core reads it."""
+    return get_core_lib().ribbit_core_overlay_cache_max()
+
+
 # ribbit_core_scan's phases, in order (csrc/core_phases.c), by span name
 SCAN_PHASES = ("replay.generate", "replay.perfect", "replay.substitution",
                "replay.anchored", "replay.merge")
@@ -240,6 +256,45 @@ class CoreSession:
                     ptrs.append(ptr)
             self._events_keepalive = keep
             self.lib.ribbit_core_set_events(self.handle, *ptrs)
+
+    def set_overlay(self, words) -> int:
+        """Fill the C core's packed overlay cache from `words`, int32
+        [nmotifs, 2 ceil(L / 64)] on any device (scan_events.EventStreams'
+        overlay): each row is copied straight into the row the session
+        allocates for it, so the host holds the words once.  The copies
+        run on the current stream, which on the pipeline's threads is the
+        one that made the words (torch's default stream of the device;
+        neither thread sets another), so they follow the event pass.  Call
+        it after set_events and before scan.  Returns the rows filled, 0
+        where host generation's cache rule declines (L past
+        RIBBIT_OVERLAY_CACHE_MAX); raises ValueError for another shape,
+        the cache then unset.  Span "replay.overlay" (the bytes copied,
+        the rows)."""
+        import torch
+        with tracing.span("replay.overlay") as sp:
+            nrows, nw32 = words.shape
+            if words.dtype != torch.int32:
+                raise ValueError(f"overlay words: want int32, got "
+                                 f"{words.dtype}")
+            n = self.lib.ribbit_core_overlay_alloc(
+                self.handle, nrows, nw32 // 2 if nw32 % 2 == 0 else -1)
+            if n == -2:
+                raise MemoryError("overlay cache: out of host memory")
+            if n < 0:
+                raise ValueError(f"overlay words [{nrows}, {nw32}] do not fit "
+                                 f"{self.cfg.nmotifs} motifs of a "
+                                 f"{self.code.shape[0]} bp contig")
+            try:
+                for d in range(n):
+                    row = np.ctypeslib.as_array(
+                        self.lib.ribbit_core_overlay_row(self.handle, d),
+                        (nw32,))
+                    torch.from_numpy(row).copy_(words[d])
+            except BaseException:
+                self.drop_overlay()
+                raise
+            sp.set(bytes=n * nw32 * 4, rows=n)
+        return n
 
     def capture_runs(self):
         """Generate events in capture mode: the threaded C generation pass

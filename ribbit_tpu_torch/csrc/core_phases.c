@@ -23,6 +23,26 @@
  * With RIBBIT_CORE_TIMING set each phase prints ribbit_core_scan's stage
  * line and seed counts to stderr (and RIBBIT_CORE_MEM its memory lines),
  * as that function does.
+ *
+ * The packed overlay cache (ov_pack: a row of ceil(L / 64) uint64 words a
+ * motif channel, bit p & 63 of word p >> 6 the overlay at p) is built by
+ * host generation only.  With events injected, the anchored scan and
+ * refinement recompute the overlay of every range they ask about, unless
+ * the cache is filled from outside (the card's event pass stores the same
+ * words, ribbit_tpu_torch/csrc/scan_events.cu):
+ *
+ *   ribbit_core_overlay_alloc(c, nrows, nwords) gives the session nrows
+ *   rows of nwords words, each its own malloc (as ribbit_core_destroy
+ *   frees them), for the caller to fill through ribbit_core_overlay_row
+ *   before phase 3.  It keeps host generation's rule: no cache when L is
+ *   past ribbit_core_overlay_cache_max(), RIBBIT_OVERLAY_CACHE_MAX or
+ *   256 Mi bp (which the extraction reads too, so it keeps no words for a
+ *   contig the session would decline).  Returns nrows, 0 when the rule
+ *   declines, -1 for a row count other than nmotifs or a
+ *   word count other than ceil(L / 64), -2 when out of memory; in all but
+ *   the first ov_pack is left unset (a cache the session had is freed).
+ *   ribbit_core_overlay_row(c, d) is row d of the cache, whoever built it,
+ *   or NULL.
  */
 
 #include "../../csrc/ribbit_core.c"
@@ -115,4 +135,35 @@ i64 ribbit_core_scan_phase(RibbitCore *c, i32 k) {
     default:
         return -1;
     }
+}
+
+/* host generation's limit (generate_events) */
+i64 ribbit_core_overlay_cache_max(void) {
+    const char *cache_env = getenv("RIBBIT_OVERLAY_CACHE_MAX");
+    return cache_env ? atoll(cache_env) : (i64)256 << 20;
+}
+
+i64 ribbit_core_overlay_alloc(RibbitCore *c, i32 nrows, i64 nwords) {
+    ribbit_core_drop_overlay(c);
+    if (nrows != c->nmotifs || nwords != (c->L + 63) >> 6)
+        return -1;
+    if (c->L > ribbit_core_overlay_cache_max())
+        return 0;
+    c->ov_words = nwords;
+    c->ov_pack = (uint64_t **)calloc((size_t)nrows, sizeof(uint64_t *));
+    for (i32 d = 0; c->ov_pack && d < nrows; d++) {
+        c->ov_pack[d] = (uint64_t *)malloc((size_t)nwords * 8);
+        if (!c->ov_pack[d]) {
+            ribbit_core_drop_overlay(c);
+            return -2;
+        }
+        advise_huge(c->ov_pack[d], (size_t)nwords * 8);
+    }
+    return c->ov_pack ? nrows : -2;
+}
+
+uint64_t *ribbit_core_overlay_row(RibbitCore *c, i32 d) {
+    if (!c->ov_pack || d < 0 || d >= c->nmotifs)
+        return NULL;
+    return c->ov_pack[d];
 }

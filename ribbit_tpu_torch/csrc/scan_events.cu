@@ -25,6 +25,11 @@
 //   where positions >= L count as N.  Output word layout (fixed; read by
 //   csrc/ribbit_events.c): bits 0-7 q6, 8-15 q7, 16-23 pm, one int32 per
 //   position per plane, [ngroups, L].
+//   It also stores, in ov_out, the overlay of every motif row
+//   (shift m in [min_motif, max_motif], channel d = m - min_motif) packed,
+//   bit j of word w = position 32 w + j, OW = 2 ceil(L / 64) words a row
+//   and bits from L on 0: on a little-endian host a row is the C core's
+//   packed overlay cache row (ov_pack, csrc/ribbit_core.c) as it stands.
 //
 // dense_masks_kernel (replaces _kernel, scan_pallas_v4.py:70, and
 //   _gen_kernel_body, scan_pallas_full.py:78, which compute the same planes)
@@ -36,8 +41,9 @@
 //   gives the same planes).  Output: [4][nm][L], planes q7, q6, ps, pm.
 //
 // What bounds them on this card: the event pass writes 52 B/bp (13 planes
-// x 4 B) and that plane then crosses PCIe to the host, so the output bytes
-// bound the pass (0.167 ms at an 8 Mi-bp segment); compute is about ns x
+// x 4 B) and that plane then crosses PCIe to the host, plus 12.4 B/bp of
+// packed overlay (a bit per motif row), so the output bytes bound the pass
+// (0.167 ms at an 8 Mi-bp segment without the overlay); compute is about ns x
 // (an 8-bit window popcount twice, four neighbour ORs) integer ops per bp.
 // The dense pass writes 4 B per motif row per bp (396 B/bp at the default
 // config) against 14.75 B/bp read, so it too is bound by its output bytes.
@@ -324,11 +330,15 @@ __device__ __forceinline__ void transpose32(u32 (&A)[32])
 // from the planes, the overlay with anchor rows g*8 - 2 .. g*8 + 9 (loads
 // of consecutive words by consecutive threads), the 24 bit-rows q6, q7, pm,
 // one transpose to 32 int32, and through the warp's staging tile 32 stores
-// of 128 contiguous bytes.
+// of 128 contiguous bytes.  A motif row's overlay word leaves as it is
+// formed (consecutive threads, consecutive words of the row), masked to
+// positions < L; the thread of word W (when OW = W + 1) stores the row's
+// zero pad.
 __global__ void __launch_bounds__(EV_T) event_words_kernel(
     const uint8_t *__restrict__ code, const uint8_t *__restrict__ nmask,
     const u32 *__restrict__ anch, int L, int min_shift, int ns, int ngroups,
-    int W, int32_t *__restrict__ out)
+    int W, int32_t *__restrict__ out, int r0, int nm, int OW,
+    u32 *__restrict__ ov_out)
 {
     extern __shared__ u32 sw[];
     const int s_max = min_shift + ns - 1;
@@ -348,6 +358,9 @@ __global__ void __launch_bounds__(EV_T) event_words_kernel(
     for (int j = 1; j < 8; j++)
         nany |= __funnelshift_r(nw[i], nw[i + 1], j);
     const u32 nfree = ~nany, notn = ~nw[i];
+    const u32 inl = w < W - 1 ? ~0u                 // bits at positions < L
+                    : w == W - 1 && (L & 31) ? (1u << (L & 31)) - 1u
+                    : w == W - 1 ? ~0u : 0u;
     u32 *sg = st + warp * (32 * 33);
     const int wb = w0 + warp * 32;                // the warp's first word
     for (int g = 0; g < ngroups; g++) {
@@ -373,6 +386,9 @@ __global__ void __launch_bounds__(EV_T) event_words_kernel(
             }
             u32 o0 = e0 | A0[k] | A0[k + 1] | A0[k + 3] | A0[k + 4];
             u32 o1 = e1 | A1[k] | A1[k + 1] | A1[k + 3] | A1[k + 4];
+            const int d = row - r0;               // uniform in the block
+            if (d >= 0 && d < nm && w < OW)
+                ov_out[(size_t)d * OW + w] = o0 & inl;
             R[k] = few_zeros(o0, o1, 0u) & nfree;                // q6
             R[OUT_ROWS + k] = few_zeros(e0, e1, ~0u) & nfree;   // q7
             R[2 * OUT_ROWS + k] = e0 & notn;                    // pm
@@ -601,23 +617,28 @@ extern "C" int ribbit_anchor_planes(const uint8_t *code, int L, int min_shift,
     return (int)cudaGetLastError();
 }
 
+// Motif rows are shift rows r0 .. r0 + nm - 1; ov_out, int32 [nm, OW]
+// with OW = 2 ceil(L / 64).
 extern "C" int ribbit_event_words(const uint8_t *code, const uint8_t *nmask,
                                   const u32 *anch, int L, int min_shift,
-                                  int ns, int ngroups, int32_t *out,
-                                  int device, cudaStream_t stream)
+                                  int ns, int ngroups, int32_t *out, int r0,
+                                  int nm, u32 *ov_out, int device,
+                                  cudaStream_t stream)
 {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess)
         return (int)err;
     const int s_max = min_shift + ns - 1;
     const int W = (L + 31) / 32;
+    const int OW = 2 * (int)(((long long)L + 63) / 64);   // W or W + 1
     const int EW = EV_T + (s_max + 31) / 32 + 2;
     const size_t smem = (size_t)(3 * EW + EV_WARPS * 32 * 33) * sizeof(u32);
     int rc = launch_smem((const void *)event_words_kernel, smem);
     if (rc)
         return rc;
-    event_words_kernel<<<(W + EV_T - 1) / EV_T, EV_T, smem, stream>>>(
-        code, nmask, anch, L, min_shift, ns, ngroups, W, out);
+    event_words_kernel<<<(OW + EV_T - 1) / EV_T, EV_T, smem, stream>>>(
+        code, nmask, anch, L, min_shift, ns, ngroups, W, out, r0, nm, OW,
+        ov_out);
     return (int)cudaGetLastError();
 }
 

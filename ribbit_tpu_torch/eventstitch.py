@@ -50,9 +50,12 @@ from __future__ import annotations
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import tracing
 from .config import RibbitConfig
+from .core import overlay_cache_max
+from .scan_events import EventStreams, overlay_row_words
 
 # minimum exact halo is ~512 (see module doc); 2048 adds margin for free
 HALO = 2048
@@ -135,26 +138,57 @@ def capture_runs_host(code: np.ndarray, n_mask: np.ndarray,
         sess.close()
 
 
+def place_overlay(out, words, wlo: int, lo: int, hi: int) -> None:
+    """Or into `out` (the whole contig's packed overlay, int32 [nmotifs,
+    W]; bit j of word g = position 32 g + j) the bits of positions [lo, hi)
+    from `words`, a window's packed overlay (bit j of word k = position
+    wlo + 32 k + j), on their device.  A window's words fall on the
+    contig's grid when wlo is a multiple of 32; otherwise each word is
+    funnel-shifted from two."""
+    g0, g1 = lo >> 5, (hi + 31) >> 5
+    k0, off = divmod(32 * g0 - wlo, 32)       # word g0 from words k0, k0 + 1
+    k1 = k0 + g1 - g0 + 1
+    u = words[:, max(k0, 0):k1].to(torch.int64) & 0xFFFFFFFF
+    left = max(0, -k0)                        # words outside the window: 0
+    u = torch.nn.functional.pad(u, (left, k1 - k0 - left - u.shape[1]))
+    v = ((u[:, :-1] >> off) | (u[:, 1:] << (32 - off))) & 0xFFFFFFFF
+    v[:, 0] &= (0xFFFFFFFF << (lo - 32 * g0)) & 0xFFFFFFFF
+    if hi & 31:
+        v[:, -1] &= (1 << (hi & 31)) - 1
+    v = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    out[:, g0:g1] |= v
+
+
 def scan_events_segmented(code: np.ndarray, n_mask: np.ndarray,
                           cfg: RibbitConfig,
                           extractor: Callable,
                           seg_size: int = 8 << 20,
-                          halo: int = HALO) -> Tuple[Stream, Stream, Stream]:
+                          halo: int = HALO) -> EventStreams:
     """Whole-contig event streams via per-segment extraction + stitching.
 
     `extractor(code, n_mask, cfg) -> (perf, q7, q6)` runs on each halo-
     extended segment.  Output is
     bit-identical to running the extractor on the whole contig, with
-    device memory bounded by the segment size.  On 2+ segments, spans
-    "stitch.clip" (a segment's three streams, the fragments kept) and
-    "stitch.merge" (the three merges, the events out)."""
+    device memory bounded by the segment size, and the contig's packed
+    overlay (EventStreams.overlay) besides where the extractor hands each
+    segment's on and the C core would cache it (L <= overlay_cache_max()):
+    one segment's words as they are, else the segments' core intervals put
+    together on their device (place_overlay).  Past the limit each
+    segment's words are dropped as soon as it is clipped, and the overlay
+    is None.  On 2+ segments, spans "stitch.clip" (a segment's three
+    streams, the fragments kept, and its overlay placed) and "stitch.merge"
+    (the three merges, the events out)."""
     L = code.shape[0]
+    keep = L <= overlay_cache_max()
     bounds = segment_bounds(L, seg_size)
     if len(bounds) == 2:
-        return extractor(code, n_mask, cfg)
+        streams = extractor(code, n_mask, cfg)
+        return EventStreams(streams, getattr(streams, "overlay", None)
+                            if keep else None)
 
     parts: List[List[Tuple[np.ndarray, np.ndarray, np.ndarray]]] = \
         [[], [], []]
+    overlay = None
     for i in range(len(bounds) - 1):
         lo, hi = bounds[i], bounds[i + 1]
         wlo, whi = max(0, lo - halo), min(L, hi + halo)
@@ -163,8 +197,14 @@ def scan_events_segmented(code: np.ndarray, n_mask: np.ndarray,
         with tracing.span("stitch.clip") as sp:
             for j, st in enumerate(streams):
                 parts[j].append(clip_stream(st, lo, hi, wlo))
+            words = getattr(streams, "overlay", None) if keep else None
+            if i == 0 and words is not None:   # extractors are homogeneous
+                overlay = words.new_zeros(cfg.nmotifs, overlay_row_words(L))
+            if overlay is not None:
+                place_overlay(overlay, words, wlo, lo, hi)
+            del streams, words         # freed before the next segment
             sp.set(events=sum(p[-1][0].shape[0] for p in parts))
     with tracing.span("stitch.merge") as sp:
         out = tuple(merge_clipped(p, cfg.nmotifs) for p in parts)
         sp.set(events=sum(st[0].shape[0] for st in out))
-    return out
+    return EventStreams(out, overlay)

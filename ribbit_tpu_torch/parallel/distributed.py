@@ -48,10 +48,12 @@ def _stack_windows(code: np.ndarray, n_mask: np.ndarray, bounds: List[int],
 
 def _sharded_extract(devices: Sequence, cfg: RibbitConfig, chunks) -> list:
     """(perfect, q7, q6) streams of each (code, n_mask) chunk, extracted
-    on its device of the contiguous split; listed by chunk index."""
+    on its device of the contiguous split; listed by chunk index.  The
+    chunks' packed overlays are dropped as each returns: this route's
+    replay does not read them."""
     return map_items(
         devices, len(chunks),
-        lambda d, i: scan_events_device(*chunks[i], cfg, device=d))
+        lambda d, i: tuple(scan_events_device(*chunks[i], cfg, device=d)))
 
 
 def _clip_chunk(streams, bounds: List[int], windows, i: int):

@@ -7,7 +7,8 @@ producer/consumer loop _fasta_records_tpu_overlap).  Per contig:
 
   encode -> scan_events_segmented (8 Mi-bp segments + halo, each through
   scan_events.scan_events_device on `device`) -> CoreSession.set_events
-  -> scan -> refine in the C pool -> BED lines
+  and set_overlay (the event pass's packed overlay, kept on `device` until
+  then) -> scan -> refine in the C pool -> BED lines
 
 With RIBBIT_BATCHED_REFINE set (any non-empty value), the refine step is
 refine_batched instead: the C round entries build each round's requests,
@@ -75,7 +76,9 @@ PREFETCH = 2         # contigs extracted ahead of the one being refined
 def extract_events(code, n_mask, cfg: RibbitConfig, device="cuda",
                    seg_size: int = SEG_SIZE):
     """(perfect, q7, q6) event streams of one contig, extracted on
-    `device` segment by segment and stitched exactly."""
+    `device` segment by segment and stitched exactly, with the contig's
+    packed overlay on `device` where the C core would cache it
+    (scan_events_segmented)."""
     return scan_events_segmented(
         code, n_mask, cfg,
         extractor=functools.partial(scan_events_device, device=device),
@@ -85,11 +88,14 @@ def extract_events(code, n_mask, cfg: RibbitConfig, device="cuda",
 def _replay_refine(sid: str, seq: str, code, n_mask, events,
                    cfg: RibbitConfig, nthreads: int,
                    device=None) -> List[str]:
-    """Replay the events in the C core, then refine the seeds in the C
+    """Replay the events in the C core, with their packed overlay as its
+    overlay cache where they carry one, then refine the seeds in the C
     pool, or with refine_batched on `device` when one is given."""
     sess = CoreSession(code, n_mask, cfg, nthreads=nthreads)
     try:
         sess.set_events(*events)
+        if events.overlay is not None:
+            sess.set_overlay(events.overlay)
         seeds = sess.scan()
         if device is None:
             return sess.refine(seeds, seq, sid)
@@ -150,8 +156,11 @@ def process_fasta_records(path: str, cfg: RibbitConfig,
 
     `workers` and `chunk_size` apply to 'host', whose records go to
     host.py as it takes them; 'gpu' bounds device memory by its fixed
-    segment size instead.  The Python engine takes the records one at a
-    time.  On 'gpu' each record's work is a "record" span (its bp) serving
+    segment size instead, plus the packed overlay (nmotifs / 8 B/bp, 12.4
+    at the defaults) of each contig in flight that the C core caches
+    (core.overlay_cache_max(), 256 Mi bp by default): up to PREFETCH + 2
+    contigs, 13.3 GB at most at the defaults.  The Python engine takes
+    the records one at a time.  On 'gpu' each record's work is a "record" span (its bp) serving
     the record's index (tracing.serving)."""
     check_engine(engine)
     if scan_backend == "host":

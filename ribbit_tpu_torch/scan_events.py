@@ -12,7 +12,11 @@ csrc/ribbit_events.c, is the repository's C core, built by native.py).
   event_words    replaces the Pallas event pass (_kernel).  Its output is
                  the fixed contract the C decoder reads: int32
                  [ceil(nsp/8), L], bits 0-7 q6, 8-15 q7, 16-23 pm of the
-                 plane's 8 shift rows.
+                 plane's 8 shift rows.  It also stores the packed
+                 overlay of the motif rows in its `overlay` tensor, int32
+                 [nmotifs, overlay_row_words(L)]: the C core's packed
+                 overlay cache (CoreSession.set_overlay), which the
+                 extraction keeps on the device for the replay.
 
 The kernels live in csrc/scan_events.cu, whose header says what they
 compute, what bounds them on an H100 and how the design answers it.  Each
@@ -41,6 +45,12 @@ def nsp_of(cfg: RibbitConfig) -> int:
     """Shift rows the event planes cover (scan_pallas_v2._nsp_of)."""
     ns = cfg.max_shift - cfg.min_shift + 1
     return max(32, ((ns + 7) // 8) * 8)
+
+
+def overlay_row_words(L: int) -> int:
+    """int32 words of one packed overlay row of L positions: the C core's
+    uint64 words, ceil(L / 64), two each."""
+    return 2 * ((L + 63) >> 6)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
@@ -124,11 +134,46 @@ def _win8(x: torch.Tensor) -> torch.Tensor:
     return sum(xp[k:k + L] for k in range(WINDOW_LENGTH))
 
 
+def _overlay_rows(code: torch.Tensor, anchors: torch.Tensor,
+                  cfg: RibbitConfig, rows: range):
+    """(eq, overlay) bool [L] of the shift rows r of `rows`, in order: eq of
+    row r (0 for r >= nshifts) or'd with the anchors of rows r - 2, r - 1,
+    r + 1, r + 2 (those in [0, nshifts)), each anchor row unpacked once."""
+    L, ns = code.shape[0], cfg.nshifts
+    unpacked: dict = {}
+    for r in rows:
+        eq = _shift_eq(code, cfg.min_shift + r) if r < ns else torch.zeros(
+            L, dtype=torch.bool, device=code.device)
+        ov = eq.clone()
+        for d in (-2, -1, 1, 2):
+            if 0 <= r + d < ns:
+                if r + d not in unpacked:
+                    unpacked[r + d] = unpack_words(anchors[r + d], L)
+                ov |= unpacked[r + d]
+        unpacked.pop(r - 2, None)
+        yield eq, ov
+
+
+def overlay_words_ref(code: torch.Tensor, anchors: torch.Tensor,
+                      cfg: RibbitConfig) -> torch.Tensor:
+    """Plain version of event_words' overlay output: int32 [nmotifs,
+    overlay_row_words(L)], row d the overlay of motif min_motif + d packed
+    (pack_words), bits from L on 0."""
+    L = code.shape[0]
+    r0 = cfg.min_motif - cfg.min_shift
+    out = torch.zeros(cfg.nmotifs, overlay_row_words(L), dtype=torch.int32,
+                      device=code.device)
+    for d, (_eq, ov) in enumerate(_overlay_rows(code, anchors, cfg,
+                                                range(r0, r0 + cfg.nmotifs))):
+        out[d, :(L + 31) // 32] = pack_words(ov)
+    return out
+
+
 def flagwords_ref(code: torch.Tensor, n_mask: torch.Tensor,
                   anchors: torch.Tensor, cfg: RibbitConfig) -> torch.Tensor:
     """Plain version of event_words, one shift row at a time."""
     L = code.shape[0]
-    ns, nsp = cfg.nshifts, nsp_of(cfg)
+    nsp = nsp_of(cfg)
     nm = n_mask.bool()
     # the right pad counts as N, so windows reaching past L are not N-free
     nfree = _win8(torch.cat([nm, torch.ones(WINDOW_LENGTH - 1,
@@ -136,22 +181,8 @@ def flagwords_ref(code: torch.Tensor, n_mask: torch.Tensor,
                                             device=nm.device)]))[:L] == 0
     out = torch.zeros(nsp // OUT_ROWS, L, dtype=torch.int32,
                       device=code.device)
-    unpacked: dict = {}
-
-    def anch(r):
-        if r not in unpacked:
-            unpacked[r] = unpack_words(anchors[r], L)
-        return unpacked[r]
-
-    for r in range(nsp):
-        s = cfg.min_shift + r
-        eq = _shift_eq(code, s) if r < ns else torch.zeros(
-            L, dtype=torch.bool, device=code.device)
-        ov = eq.clone()
-        for d in (-2, -1, 1, 2):
-            if 0 <= r + d < ns:
-                ov |= anch(r + d)
-        unpacked.pop(r - 2, None)
+    for r, (eq, ov) in enumerate(_overlay_rows(code, anchors, cfg,
+                                               range(nsp))):
         q6 = (_win8(ov) >= 6) & nfree
         q7 = (_win8(eq) >= 7) & nfree
         pm = eq & ~nm
@@ -187,7 +218,8 @@ def _lib() -> ctypes.CDLL:
     lib.ribbit_anchor_planes.restype = I
     lib.ribbit_anchor_planes.argtypes = [P, I, I, I, P, I, I, P]
     lib.ribbit_event_words.restype = I
-    lib.ribbit_event_words.argtypes = [P, P, P, I, I, I, I, P, I, P]
+    lib.ribbit_event_words.argtypes = [P, P, P, I, I, I, I, P, I, I, P, I,
+                                       P]
     lib.ribbit_dense_masks.restype = I
     lib.ribbit_dense_masks.argtypes = [P, P, P, I, I, I, I, I, P, I, P]
     return lib
@@ -231,9 +263,12 @@ anchor_planes.launches = 0
 
 
 def event_words(code: torch.Tensor, n_mask: torch.Tensor,
-                anchors: torch.Tensor, cfg: RibbitConfig) -> torch.Tensor:
+                anchors: torch.Tensor, cfg: RibbitConfig,
+                overlay: torch.Tensor) -> torch.Tensor:
     """Event bitmap words int32 [ceil(nsp/8), L] (the C decoder's layout)
-    of uint8 code and n_mask [L] and anchor_planes' output.  Kernel:
+    of uint8 code and n_mask [L] and anchor_planes' output; the same pass
+    writes the packed overlay into `overlay`, int32 [nmotifs,
+    overlay_row_words(L)] on the same device (overlay_words_ref).  Kernel:
     ribbit_event_words.
 
     The code holds encode's values 0-3 with N encoded as 0: the kernel
@@ -246,16 +281,20 @@ def event_words(code: torch.Tensor, n_mask: torch.Tensor,
     _check(code, "code", torch.uint8, (L,))
     _check(n_mask, "n_mask", torch.uint8, (L,))
     _check(anchors, "anchors", torch.int32, (cfg.nshifts, (L + 31) // 32))
+    _check(overlay, "overlay", torch.int32,
+           (cfg.nmotifs, overlay_row_words(L)))
     kernel = _kernel_device(code)
-    if n_mask.device != code.device or anchors.device != code.device:
+    if any(t.device != code.device for t in (n_mask, anchors, overlay)):
         raise ValueError("event_words: inputs on different devices")
     if not kernel:
+        overlay.copy_(overlay_words_ref(code, anchors, cfg))
         return flagwords_ref(code, n_mask, anchors, cfg)
     ngroups = nsp_of(cfg) // OUT_ROWS
     out = torch.empty(ngroups, L, dtype=torch.int32, device=code.device)
     rc = _lib().ribbit_event_words(
         code.data_ptr(), n_mask.data_ptr(), anchors.data_ptr(), L,
         cfg.min_shift, cfg.nshifts, ngroups, out.data_ptr(),
+        cfg.min_motif - cfg.min_shift, cfg.nmotifs, overlay.data_ptr(),
         code.device.index, torch.cuda.current_stream(code.device).cuda_stream)
     _raise_on(rc, "event_words")
     count_launch(event_words)
@@ -407,25 +446,42 @@ def device_inputs(*arrays: np.ndarray, device):
                  .to(dev) for a in arrays)
 
 
+class EventStreams(tuple):
+    """(perfect, q7, q6) event streams, as CoreSession.set_events takes
+    them, and `overlay`: the packed overlay words of the same positions
+    (int32 [nmotifs, overlay_row_words(L)], on the device that made them;
+    CoreSession.set_overlay), or None."""
+
+    def __new__(cls, streams, overlay=None):
+        self = super().__new__(cls, streams)
+        self.overlay = overlay
+        return self
+
+
 def flagwords(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig,
-              device="cuda") -> np.ndarray:
-    """Event bitmap words of one sequence as int32 [ceil(nsp/8), L] on the
-    host: both passes on `device`, then one device-to-host copy.  Spans
-    "extract.h2d", "extract.kernels" (the launches) and "extract.d2h"
-    (the copy, with the wait on the kernels)."""
+              device="cuda"):
+    """(event bitmap words of one sequence as int32 [ceil(nsp/8), L] on the
+    host, its packed overlay words on `device`): both passes on `device`,
+    then one device-to-host copy of the event words.  Spans "extract.h2d",
+    "extract.kernels" (the launches) and "extract.d2h" (the copy, with the
+    wait on the kernels)."""
     with tracing.span("extract.h2d", bytes=code.nbytes + n_mask.nbytes):
         c, n = device_inputs(code, n_mask, device=device)
     with tracing.span("extract.kernels"):
-        w = event_words(c, n, anchor_planes(c, cfg), cfg)
+        ov = torch.empty(cfg.nmotifs, overlay_row_words(code.shape[0]),
+                         dtype=torch.int32, device=c.device)
+        w = event_words(c, n, anchor_planes(c, cfg), cfg, ov)
     with tracing.span("extract.d2h", bytes=w.numel() * w.element_size()):
-        return w.cpu().numpy()
+        return w.cpu().numpy(), ov
 
 
 def scan_events_device(code: np.ndarray, n_mask: np.ndarray,
-                       cfg: RibbitConfig, device="cuda"):
+                       cfg: RibbitConfig, device="cuda") -> EventStreams:
     """Device event extraction + C transition decode: (perfect, q7, q6)
     streams, the contract of ribbit_tpu.scan_events_pallas
-    .scan_events_device and CoreSession.set_events.  Span "extract"
-    (the bp it covers) over the four of flagwords and _decode_c."""
+    .scan_events_device and CoreSession.set_events, with the packed
+    overlay left on `device`.  Span "extract" (the bp it covers) over the
+    four of flagwords and _decode_c."""
     with tracing.span("extract", bp=code.shape[0]):
-        return _decode_c(flagwords(code, n_mask, cfg, device), cfg)
+        w, ov = flagwords(code, n_mask, cfg, device)
+        return EventStreams(_decode_c(w, cfg), ov)

@@ -185,13 +185,14 @@ def test_check_probe_loop_refuses_a_folded_body(body, rounds, folded):
 def test_scan_and_probe_work():
     """The default configuration's exact bytes and operations: anchor
     planes 12.75 B/bp for 102 shift rows; the event pass 52 B/bp written
-    for 104 plane rows; the dense pass 396 B/bp for 99 motif rows; the
-    probe's 8.59 G operations on its tile."""
+    for 104 plane rows and 12.375 B/bp of packed overlay for 99 motif rows;
+    the dense pass 396 B/bp for 99 motif rows; the probe's 8.59 G
+    operations on its tile."""
     cfg, L = RibbitConfig.create(), 4096
     assert br.scan_work("anchor_planes", L, cfg) == (L * (1 + 12.75),
                                                      L * 102)
-    assert br.scan_work("event_words", L, cfg) == (L * (2 + 12.75 + 52),
-                                                   L * 104 * 4)
+    assert br.scan_work("event_words", L, cfg) == (
+        L * (2 + 12.75 + 52 + 12.375), L * 104 * 4)
     assert br.scan_work("dense_masks", L, cfg) == (L * (2 + 12.75 + 396),
                                                    L * 99 * 5)
     assert br.probe_work() == (8 * 8 * 16384, 8_589_934_592)

@@ -40,6 +40,11 @@ def _tensors(code, n_mask):
             torch.from_numpy(n_mask.view(np.uint8)))
 
 
+def _ov(cfg, L):
+    """The event pass's packed overlay output for L positions."""
+    return torch.empty(cfg.nmotifs, se.overlay_row_words(L), dtype=torch.int32)
+
+
 @pytest.fixture(scope="module")
 def pallas_ref(cpu_jax):
     """Per configuration: (code, n_mask, K1 anchor planes, K2 words) from
@@ -90,7 +95,8 @@ def test_event_words_match_pallas_k2(pallas_ref, name):
     cfg = _cfg(name)
     code, n_mask, _, k2 = pallas_ref[name]
     c, n = _tensors(code, n_mask)
-    got = se.event_words(c, n, se.anchor_planes(c, cfg), cfg).numpy()
+    got = se.event_words(c, n, se.anchor_planes(c, cfg), cfg,
+                         _ov(cfg, len(code))).numpy()
     assert got.dtype == np.int32 and got.shape == k2.shape
     assert np.array_equal(got, k2)
     # rows past the last shift: q7 and pm are zero, but q6 carries the
@@ -164,7 +170,8 @@ def test_edge_lengths_match_numpy_spec(name, L):
     L = code.shape[0]
     c, n = _tensors(code, n_mask)
     anch = se.anchor_planes(c, cfg)
-    words = se.event_words(c, n, anch, cfg).numpy().view(np.uint32)
+    words = se.event_words(c, n, anch, cfg, _ov(cfg, L)).numpy() \
+        .view(np.uint32)
 
     eq = scan_host.match_bitmaps(code, cfg)
     an = scan_host.anchor_bitmaps(eq, cfg)
@@ -216,7 +223,7 @@ def test_numpy_and_c_decoders_agree():
     cfg = RibbitConfig.create()
     code, n_mask = encode(simulate(num_loci=3, seed=19, name="dec",
                                    n_block_rate=0.2).sequence)
-    w = se.flagwords(code, n_mask, cfg, device="cpu")
+    w, _ov = se.flagwords(code, n_mask, cfg, device="cpu")
     for gs, ws in zip(se._decode_numpy(w, cfg), se._decode_c(w, cfg)):
         for a, b in zip(gs, ws):
             assert np.array_equal(np.asarray(a, np.int64),
@@ -239,7 +246,8 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
     c, n = _tensors(code, n_mask)
     a0, e0 = se.anchor_planes.launches, se.event_words.launches
     anch = se.anchor_planes(c, cfg)
-    se.event_words(c, n, anch, cfg)
+    ov = _ov(cfg, len(code))
+    se.event_words(c, n, anch, cfg, ov)
     # the plain versions ran: a CPU tensor never counts as a launch
     assert (se.anchor_planes.launches, se.event_words.launches) == (a0, e0)
     with pytest.raises(ValueError):
@@ -247,11 +255,11 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
     with pytest.raises(ValueError):
         se.anchor_planes(torch.zeros(0, dtype=torch.uint8), cfg)
     with pytest.raises(ValueError):
-        se.event_words(c, n[:-1], anch, cfg)
+        se.event_words(c, n[:-1], anch, cfg, ov)
     with pytest.raises(ValueError):
-        se.event_words(c, n, anch[:, :-1], cfg)
+        se.event_words(c, n, anch[:, :-1], cfg, ov)
     with pytest.raises(ValueError):
-        se.event_words(c, n.bool(), anch, cfg)
+        se.event_words(c, n.bool(), anch, cfg, ov)
     with pytest.raises(ValueError):
         se.anchor_planes(torch.zeros(8, dtype=torch.uint8, device="meta"),
                          cfg)
