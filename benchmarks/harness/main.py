@@ -179,7 +179,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         detail = []
         for k in wanted:
             rec = records[k]
-            seq = traffic_mod.sequence(rec, float(cell.config["n_block_rate"]))
+            seq = traffic_mod.sequence(rec, cell.config)
             lines = out["kept"].get(k)
             dig = capture.got.get(k)
             prefix_bp = int(cell.traffic["check"]["prefix_bp"])

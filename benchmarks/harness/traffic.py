@@ -2,8 +2,11 @@
 its traffic file and the run's seed.
 
 A configuration lists the records of one genome copy ("records": name and
-length each, in published order) and the generator's recipe
-("n_block_rate").  A traffic file says how the records are laid out:
+length each, in published order) and the generator's recipe: the share
+of spacers that hold an N block ("n_block_rate") and, optionally, a
+"recipe" object ("motif_bp": [lo, hi], the range of planted motif
+sizes, 2-100 bp when left out); an unknown key or value raises as the
+run is planned.  A traffic file says how the records are laid out:
 
   layout     "one_fasta": every record in one multi-record FASTA, one
              call of the entry; "per_record": one single-record FASTA a
@@ -51,8 +54,26 @@ def record_seed(seed: int, copy: int, index: int) -> int:
     return int.from_bytes(h.digest(), "little")
 
 
+def recipe(config: dict) -> dict:
+    """gen.simulate_length's keywords from the configuration's "recipe"
+    object, checked: a misspelt key must not fall back to a default."""
+    given = config.get("recipe", {})
+    unknown = sorted(set(given) - {"motif_bp"})
+    if unknown:
+        raise ValueError(f"unknown recipe key(s) {unknown}; known: "
+                         "['motif_bp']")
+    if "motif_bp" not in given:
+        return {}
+    lo, hi = given["motif_bp"]
+    if not (isinstance(lo, int) and isinstance(hi, int) and 2 <= lo <= hi):
+        raise ValueError(f"recipe motif_bp {given['motif_bp']!r}: two whole "
+                         "numbers, 2 <= lo <= hi")
+    return {"min_motif": lo, "max_motif": hi}
+
+
 def plan(config: dict, traffic: dict, seed: int) -> list:
     """The records of a run in delivery order; the warm-up record first."""
+    recipe(config)
     recs = config["records"]
     w = traffic["warmup"]
     if "record" in w:
@@ -97,12 +118,15 @@ def layout(records: list, traffic: dict, directory: pathlib.Path) -> list:
     return [r.path for r in records]
 
 
-def sequence(r: Record, n_block_rate: float) -> str:
-    return gen.simulate_length(r.length, r.seed, n_block_rate)
+def sequence(r: Record, config: dict) -> str:
+    """The record's sequence: what the writer puts in its file and what
+    the check regenerates."""
+    return gen.simulate_length(r.length, r.seed, float(config["n_block_rate"]),
+                               **recipe(config))
 
 
-def _write(r: Record, n_block_rate: float) -> None:
-    seq = sequence(r, n_block_rate)
+def _write(r: Record, config: dict) -> None:
+    seq = sequence(r, config)
     lines = [f">{r.name}"]
     lines += [seq[i:i + WIDTH] for i in range(0, len(seq), WIDTH)]
     data = ("\n".join(lines) + "\n").encode("ascii")
@@ -119,7 +143,6 @@ def start_writing(records: list, config: dict, workers: int = 0):
     workers = workers or min(8, os.cpu_count() or 1)
     pool = ProcessPoolExecutor(workers,
                                mp_context=multiprocessing.get_context("spawn"))
-    rate = float(config["n_block_rate"])
     # longest first, so that the pool ends together
     order = sorted(records, key=lambda r: -r.length)
-    return pool, [pool.submit(_write, r, rate) for r in order]
+    return pool, [pool.submit(_write, r, config) for r in order]

@@ -37,6 +37,7 @@ TINY_CONFIG = {"flags": {"min_motif": 2, "max_motif": 100},
                "n_block_rate": 0.1,
                "records": [{"name": "a", "length": 60000},
                            {"name": "b", "length": 50000}]}
+TINY_RECIPE = {**TINY_CONFIG, "recipe": {"motif_bp": [2, 60]}}
 TINY_TRAFFIC = {
     "one": {"layout": "one_fasta", "warmup": {"length": 20000},
             "pass_bp": 600000,
@@ -49,22 +50,28 @@ TINY_TRAFFIC = {
 
 def make_root(tmp: pathlib.Path) -> pathlib.Path:
     """A checkout-shaped directory with the repository's BENCHMARK.json
-    metrics and readers, and two tiny cells of one tiny configuration,
-    added by files and entries alone."""
+    metrics and readers, two tiny cells of one tiny configuration and one
+    of a tiny configuration with a recipe, added by files and entries
+    alone."""
     (tmp / "benchmarks").mkdir(parents=True)
     shutil.copytree(BENCH / "metrics", tmp / "benchmarks" / "metrics")
     (tmp / "benchmarks" / "configs").mkdir()
     (tmp / "benchmarks" / "traffic").mkdir()
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "tiny", "source": "test",
-                             "file": "benchmarks/configs/tiny.json",
-                             "reduced": [], "why": "test"})
-    (tmp / "benchmarks/configs/tiny.json").write_text(json.dumps(TINY_CONFIG))
+    for config, obj in (("tiny", TINY_CONFIG), ("tiny_recipe", TINY_RECIPE)):
+        bench["configs"].append({"name": config, "source": "test",
+                                 "file": f"benchmarks/configs/{config}.json",
+                                 "reduced": [], "why": "test"})
+        (tmp / f"benchmarks/configs/{config}.json").write_text(
+            json.dumps(obj))
     for name, t in TINY_TRAFFIC.items():
         (tmp / f"benchmarks/traffic/{name}.json").write_text(json.dumps(t))
         bench["workloads"].append({"name": f"tiny.{name}", "config": "tiny",
                                    "traffic": name, "chips": 1,
                                    "why": "test"})
+    bench["workloads"].append({"name": "tiny_recipe.jobs",
+                               "config": "tiny_recipe", "traffic": "jobs",
+                               "chips": 1, "why": "test"})
     for m in bench["per_layer"]:
         if "workloads" in m:
             m["workloads"].append("tiny.one")

@@ -47,7 +47,8 @@ def _answer_altered(monkeypatch):
     monkeypatch.setattr(core.CoreSession, "refine", refine)
 
 
-@pytest.mark.parametrize("workload", ["tiny.one", "tiny.jobs"])
+@pytest.mark.parametrize("workload", ["tiny.one", "tiny.jobs",
+                                      "tiny_recipe.jobs"])
 def test_a_sound_run_is_correct(tiny_root, monkeypatch, workload):
     small_segments(monkeypatch)
     res = _run(tiny_root, workload)

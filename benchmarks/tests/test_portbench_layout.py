@@ -8,7 +8,7 @@ import pytest
 
 from conftest import ROOT
 
-from harness import main, spec
+from harness import main, spec, traffic
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -24,6 +24,7 @@ def test_every_cell_finds_its_files():
     for w in b["workloads"]:
         cell = spec.load_cell(w["name"])
         assert cell.config["records"] and cell.config["flags"]
+        traffic.recipe(cell.config)         # raises on an unknown key
         assert cell.traffic["layout"] in ("one_fasta", "per_record")
         assert {m["name"] for m in cell.end_to_end} >= {"mbp_per_s",
                                                         "setup_s"}
