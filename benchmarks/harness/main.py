@@ -208,8 +208,6 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                 v, unit = e2e[m["name"]]
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         else:
-            if out["trace"] is not None:
-                out["trace"].attach(recorder.spans, *out["marks"])
             view = RunView(lo, hi, mbp, recorder.spans, out["main_thread"],
                            out["trace"], flags)
             for m in cell.per_layer:
@@ -241,20 +239,30 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def profiler(device):
+    """The traced run's torch.profiler: the host, the card where there is
+    one, and ranges on every thread, so that the harness's call ranges on
+    the device thread reach the trace (trace.py)."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts, experimental_config=_ExperimentalConfig(
+        profile_all_threads=True))
+
+
 def _window(cell, files, cfg, device, seconds, trace, wanted, tmp,
             backend):
     """Drive the entry over the files; returns the window's numbers."""
     import torch
     prof = None
     if trace:
-        from torch.profiler import ProfilerActivity, profile, record_function
-        acts = [ProfilerActivity.CPU]
-        if torch.device(device).type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        from torch.profiler import record_function
+        prof = profiler(device)
         prof.start()
     rss = RssSampler()
-    marks = [0.0, 0.0]          # host times of the trace's window marks
     kept: dict = {}
     t_open = t_close = None
     mbp = 0.0
@@ -271,7 +279,6 @@ def _window(cell, files, cfg, device, seconds, trace, wanted, tmp,
                 t_open = t
                 rss.start()
                 if prof:
-                    marks[0] = time.perf_counter()
                     with record_function("bench::window_open"):
                         pass
             elif t_close is None:
@@ -281,7 +288,6 @@ def _window(cell, files, cfg, device, seconds, trace, wanted, tmp,
                 if t - t_open >= seconds:
                     t_close = t
                     if prof:
-                        marks[1] = time.perf_counter()
                         with record_function("bench::window_close"):
                             pass
                     rss_peak = rss.stop()
@@ -295,7 +301,6 @@ def _window(cell, files, cfg, device, seconds, trace, wanted, tmp,
               "longer pass is needed", file=sys.stderr)
         t_close = time.perf_counter()
         if prof:
-            marks[1] = time.perf_counter()
             with record_function("bench::window_close"):
                 pass
         rss_peak = rss.stop()
@@ -313,7 +318,7 @@ def _window(cell, files, cfg, device, seconds, trace, wanted, tmp,
                   file=sys.stderr)
     return {"t_open": t_open, "t_close": t_close, "mbp": mbp,
             "attempted": attempted, "failed": failed, "rss_peak": rss_peak,
-            "kept": kept, "trace": parsed, "marks": marks,
+            "kept": kept, "trace": parsed,
             "main_thread": threading.get_ident()}
 
 

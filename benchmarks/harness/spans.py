@@ -7,7 +7,8 @@ A target names an attribute of the port's package ribbit_tpu_torch as
 call the pipeline makes through it, on any thread, is timed, with the
 length of its first array argument (the bp an extractor call covers).  A
 target that does not resolve is reported and left out; its metrics then
-read nothing.
+read nothing.  Each call is also a profiler range on its thread
+(trace.call_range), which ties it to its kernels on the trace's clock.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ class Recorder:
         found = resolve(target)
         if found is None:
             return False
+        from torch.profiler import record_function
+
+        from .trace import call_range
         owner, attr = found
         orig = getattr(owner, attr)
         spans = self.spans
@@ -70,7 +74,8 @@ class Recorder:
             n = _arg_len(args)
             t0 = time.perf_counter()
             try:
-                return orig(*args, **kwargs)
+                with record_function(call_range(target, n)):
+                    return orig(*args, **kwargs)
             finally:
                 spans.append((target, threading.get_ident(), t0,
                               time.perf_counter(), n))

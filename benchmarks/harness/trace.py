@@ -1,14 +1,15 @@
 """The device trace of a traced run (torch.profiler, CUPTI): what ran on
 the card inside the window, and what the host was doing around it.
 
-The window's edges are two empty profiler ranges, "bench::window_open"
-and "bench::window_close", that the host places as it opens and closes
-the window, on the thread that started the profiler.  They tie the host's
-clock to the trace's: the harness's spans, taken on every thread (the
-profiler records ranges only on its own), are laid onto the trace by the
-line through the two pairs (attach).  Device activity is every kernel,
-copy and memset; a kernel belongs to a span when the runtime call that
-launched it lies inside that span.
+Everything here is on the trace's one clock.  The window's edges are two
+empty profiler ranges, "bench::window_open" and "bench::window_close",
+that the host places as it opens and closes the window.  The harness's
+wrappers (spans.Recorder) open a profiler range "bench:<target>:<n>"
+around every call they time, on the calling thread, n the length of the
+call's first array; the profiler records ranges on every thread
+(profile_all_threads, harness/main.py).  Device activity is every kernel,
+copy and memset; a kernel belongs to a call when the runtime call that
+launched it lies inside the call's range on the same thread.
 """
 
 from __future__ import annotations
@@ -18,24 +19,31 @@ import json
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OPEN, CLOSE = "bench::window_open", "bench::window_close"
+CALL = "bench:"                  # prefix of a call's range (spans.Recorder)
+
+
+def call_range(target: str, n: int) -> str:
+    """The profiler range name of one call of `target` over n bp."""
+    return f"{CALL}{target}:{n}"
+
+
+def _call(name: str):
+    """(target, n) of a call's range name, or None."""
+    parts = name.split(":")
+    if len(parts) != 3 or parts[0] + ":" != CALL or not parts[1] or \
+            not parts[2].isdigit():
+        return None
+    return parts[1], int(parts[2])
 
 
 @dataclasses.dataclass
 class Trace:
     lo: float                 # window, trace clock (us)
     hi: float
-    device: list              # (name, cat, start, end, correlation)
-    launches: dict            # correlation -> launch time (us)
-    ranges: list = dataclasses.field(default_factory=list)
-    # (target:n, start, end) of the harness's spans, on the trace clock
-
-    def attach(self, span_list, t_open: float, t_close: float) -> None:
-        """Lay the harness's spans (perf_counter seconds) onto the trace:
-        t_open and t_close are the host times of the two window marks."""
-        k = (self.hi - self.lo) / (t_close - t_open)
-        self.ranges = [(f"{t}:{n}", self.lo + (a - t_open) * k,
-                        self.lo + (b - t_open) * k)
-                       for t, _th, a, b, n in span_list]
+    device: list              # (name, cat, start, end, correlation), clipped
+    kernels: dict             # correlation -> (start, end), whole
+    launches: dict            # correlation -> (thread, launch time)
+    ranges: list              # (target, thread, start, end, n) of the calls
 
     @property
     def window_s(self) -> float:
@@ -54,7 +62,7 @@ class Trace:
 
     def gaps(self, top: int = 10) -> list:
         """The longest spans of the window with nothing on the device, each
-        named by the innermost span covering its middle ("pipeline" where
+        named by the innermost call covering its middle ("pipeline" where
         none does)."""
         ivs = sorted((a, b) for _n, _k, a, b, _c in self.device)
         gaps = []
@@ -67,25 +75,26 @@ class Trace:
         out = []
         for a, b in gaps[:top]:
             mid = (a + b) / 2
-            cover = [(e - s, n) for n, s, e in self.ranges if s <= mid < e]
-            name = min(cover)[1].rsplit(":", 1)[0] if cover else "pipeline"
-            out.append([name, (b - a) * 1e-6])
+            cover = [(e - s, t) for t, _th, s, e, _n in self.ranges
+                     if s <= mid < e]
+            out.append([min(cover)[1] if cover else "pipeline",
+                        (b - a) * 1e-6])
         return out
 
     def kernel_seconds_in(self, target: str) -> tuple:
-        """(device seconds of the kernels launched inside `target`'s spans
-        that start in the window, the first array lengths of those
-        spans)."""
-        rs = [(s, e, int(n.rsplit(":", 1)[1])) for n, s, e in self.ranges
-              if n.rsplit(":", 1)[0] == target and self.lo <= s < self.hi]
+        """(device seconds, whole, of the kernels launched inside the calls
+        of `target` that start in the window, those calls' first array
+        lengths)."""
+        calls = [(th, s, e, n) for t, th, s, e, n in self.ranges
+                 if t == target and self.lo <= s < self.hi]
         secs = 0.0
-        for _n, cat, a, b, c in self.device:
-            if cat != "kernel":
-                continue
-            t = self.launches.get(c)
-            if t is not None and any(s <= t < e for s, e, _l in rs):
+        for c, (a, b) in self.kernels.items():
+            th_t = self.launches.get(c)
+            if th_t is not None and any(
+                    th == th_t[0] and s <= th_t[1] < e
+                    for th, s, e, _n in calls):
                 secs += (b - a) * 1e-6
-        return secs, [l for _s, _e, l in rs]
+        return secs, [n for _th, _s, _e, n in calls]
 
 
 def parse(path: str) -> Trace | None:
@@ -94,7 +103,7 @@ def parse(path: str) -> Trace | None:
     with open(path) as fh:
         events = json.load(fh).get("traceEvents", [])
     marks: dict = {}
-    device, launches = [], {}
+    device, kernels, launches, ranges = [], {}, {}, []
     for ev in events:
         if ev.get("ph") != "X":
             continue
@@ -102,18 +111,22 @@ def parse(path: str) -> Trace | None:
         cat = ev.get("cat", "")
         ts = float(ev["ts"])
         dur = float(ev.get("dur", 0.0))
-        if cat == "user_annotation" and name in (OPEN, CLOSE):
-            marks[name] = ts
+        corr = ev.get("args", {}).get("correlation")
+        if cat == "user_annotation":
+            if name in (OPEN, CLOSE):
+                marks[name] = ts
+            elif (call := _call(name)) is not None:
+                ranges.append((call[0], ev.get("tid"), ts, ts + dur,
+                               call[1]))
         elif cat in DEVICE_CATS:
-            device.append((name, cat, ts, ts + dur,
-                           ev.get("args", {}).get("correlation")))
-        elif cat in ("cuda_runtime", "cuda_driver"):
-            c = ev.get("args", {}).get("correlation")
-            if c is not None:
-                launches[c] = ts
+            device.append((name, cat, ts, ts + dur, corr))
+            if cat == "kernel" and corr is not None:
+                kernels[corr] = (ts, ts + dur)
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = (ev.get("tid"), ts)
     if OPEN not in marks or CLOSE not in marks:
         return None
     lo, hi = marks[OPEN], marks[CLOSE]
     inside = [(n, k, max(a, lo), min(b, hi), c) for n, k, a, b, c in device
               if b > lo and a < hi]
-    return Trace(lo, hi, inside, launches)
+    return Trace(lo, hi, inside, kernels, launches, ranges)

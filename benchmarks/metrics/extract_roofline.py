@@ -1,9 +1,17 @@
 """The extraction work's share of its roofline, in %: the least time the
-H100 needs for the anchor and event passes over the bp each extractor
-call covered (harness/roofline.py, frozen floors of bytes and int32
-operations), over the device time of every kernel launched inside the
-extractor's spans (torch.profiler).  It counts the work, whatever kernels
-do it.  Nothing to read without device kernels in those spans."""
+H100 needs for the anchor and event passes over the bp of each extractor
+call that starts in the window (harness/roofline.py, frozen floors of
+bytes and int32 operations), over the whole device time of every kernel
+those calls launched (torch.profiler).
+
+A kernel belongs to a call when its launch lies inside the call's
+profiler range on the launching thread, all on the trace's clock
+(harness/trace.py), so no kernel of a counted call drops out.  It counts
+the work, whatever kernels do it and whatever they are named.  The floor
+stays frozen: it leaves out the packed overlay that the event pass also
+stores (12.4 B/bp at the defaults), since a floor that grows with what the
+program chooses to write is no yardstick.  Nothing to read without device
+kernels in those calls."""
 
 TARGETS = ("pipeline.scan_events_device",)
 

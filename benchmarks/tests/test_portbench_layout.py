@@ -63,7 +63,9 @@ def test_benchmark_json_keeps_the_contract():
 
 def test_a_cell_config_and_metric_added_by_files_alone(tiny_root):
     """A dummy per-layer metric, written as a file and an entry, is read in
-    a traced run of a dummy cell of a dummy configuration."""
+    a traced run of a dummy cell of a dummy configuration, and so are the
+    program's phase metrics, whose entries name no cells and are the
+    repository's as they stand."""
     (tiny_root / "benchmarks/metrics/dummy_scans.py").write_text(
         'TARGETS = ("core.CoreSession.scan",)\n\n'
         "def read(run):\n"
@@ -79,7 +81,13 @@ def test_a_cell_config_and_metric_added_by_files_alone(tiny_root):
                       root=tiny_root, ref_workers=1, gen_workers=2)
     assert res["correct"]
     assert res["metrics"]["dummy_scans"]["value"] >= 1
-    assert set(res["metrics"]) >= {"replay_s_per_mbp", "refine_s_per_mbp"}
+    phases = ("extract_decode_s_per_mbp", "replay_anchored_s_per_mbp")
+    ours = {m["name"]: m for m in bench()["per_layer"]}
+    for name in phases:
+        entry = next(m for m in b["per_layer"] if m["name"] == name)
+        assert entry == ours[name] and "workloads" not in entry
+    assert set(res["metrics"]) >= {"replay_s_per_mbp", "refine_s_per_mbp",
+                                   *phases}
 
 
 def test_unknown_workload_is_refused(tiny_root):
