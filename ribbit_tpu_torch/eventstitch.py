@@ -90,28 +90,34 @@ def merge_clipped(parts: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
                   nmotifs: int) -> Stream:
     """Merge per-segment clipped fragments into the whole-contig stream.
 
-    parts are in segment order; within a part events are channel-major and
-    position-sorted.  A global run split at a core boundary appears as
-    touching fragments (prev.end == next.start on the same channel) — they
-    merge back into one event.  Everything re-sorts to channel-major."""
-    if not parts:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z.copy(), np.zeros(nmotifs + 1, dtype=np.int64)
-    ch = np.concatenate([p[0] for p in parts])
-    s = np.concatenate([p[1] for p in parts])
-    e = np.concatenate([p[2] for p in parts])
-    order = np.lexsort((s, ch))               # stable (ch, start) order
-    ch, s, e = ch[order], s[order], e[order]
-    if s.shape[0]:
-        # fragments are non-overlapping maximal-run pieces, so touching
-        # (e[k-1] == s[k]) only happens across a segment boundary
-        new = np.ones(s.shape[0], dtype=bool)
-        new[1:] = (ch[1:] != ch[:-1]) | (s[1:] != e[:-1])
-        g = np.flatnonzero(new)
-        last = np.append(g[1:], s.shape[0]) - 1
-        ch, s, e = ch[g], s[g], e[last]
-    offsets = np.searchsorted(ch, np.arange(nmotifs + 1)).astype(np.int64)
-    return s, e, offsets
+    parts are in segment order over disjoint, increasing cores; within a
+    part events are channel-major and position-sorted.  So the stream's
+    (channel, start) order is each channel's slices laid end to end in
+    part order: they are copied into place by the parts' channel offsets,
+    with no sort.  A global run split at a core boundary appears as
+    touching fragments (prev.end == next.start on the same channel), and
+    fragments are non-overlapping maximal-run pieces, so touching happens
+    only at a seam: a slice whose first fragment starts where the
+    channel's last written one ends extends it (a run over a whole middle
+    core joins across both of its seams).  The parts are only read."""
+    cuts = [np.searchsorted(ch, np.arange(nmotifs + 1)) for ch, _, _ in parts]
+    n = sum(p[1].shape[0] for p in parts)
+    s = np.empty(n, dtype=np.int64)
+    e = np.empty(n, dtype=np.int64)
+    offsets = np.empty(nmotifs + 1, dtype=np.int64)
+    k = 0
+    for c in range(nmotifs):
+        offsets[c] = k
+        for (_, ps, pe), cut in zip(parts, cuts):
+            a, z = cut[c], cut[c + 1]
+            if a < z and k > offsets[c] and e[k - 1] == ps[a]:
+                e[k - 1] = pe[a]
+                a += 1
+            s[k:k + z - a] = ps[a:z]
+            e[k:k + z - a] = pe[a:z]
+            k += z - a
+    offsets[nmotifs] = k
+    return s[:k], e[:k], offsets
 
 
 def segment_bounds(L: int, seg_size: int) -> List[int]:
@@ -177,7 +183,7 @@ def scan_events_segmented(code: np.ndarray, n_mask: np.ndarray,
     segment's words are dropped as soon as it is clipped, and the overlay
     is None.  On 2+ segments, spans "stitch.clip" (a segment's three
     streams, the fragments kept, and its overlay placed) and "stitch.merge"
-    (the three merges, the events out)."""
+    (the three merges, the events out, the fragments joined at seams)."""
     L = code.shape[0]
     keep = L <= overlay_cache_max()
     bounds = segment_bounds(L, seg_size)
@@ -206,5 +212,7 @@ def scan_events_segmented(code: np.ndarray, n_mask: np.ndarray,
             sp.set(events=sum(p[-1][0].shape[0] for p in parts))
     with tracing.span("stitch.merge") as sp:
         out = tuple(merge_clipped(p, cfg.nmotifs) for p in parts)
-        sp.set(events=sum(st[0].shape[0] for st in out))
+        n_out = sum(st[0].shape[0] for st in out)
+        sp.set(events=n_out,
+               joined=sum(c[1].shape[0] for p in parts for c in p) - n_out)
     return EventStreams(out, overlay)
